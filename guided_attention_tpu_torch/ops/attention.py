@@ -1,0 +1,99 @@
+"""Attention with map capture and paint-with-words biasing.
+
+Counterpart of the JAX package's ``ops/attention.py``: the op returns the
+head-averaged probability map beside the hidden states, so the UNet threads
+maps up as outputs instead of writing a global store (reference
+utils/ptp_utils.py:59-146).
+
+Score math (ptp_utils.py:97-146):
+  * scores = scale * q @ k^T in float32;
+  * paint-with-words: scores += mask * 0.4 * max(scores) * gate, the max
+    global over the whole [B, H, Q, K] score tensor;
+  * probs = softmax(scores) in float32, cast to the compute dtype for the
+    probs @ v product; the captured map stays float32.
+
+Routing to the kernels of ``ops/flash_attention.py`` under ``use_flash``:
+K1/K2 only for self-attention without capture or pww, K3 only for captured
+cross-attention without the per-head map or pww; everything else takes the
+plain matmul path.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from guided_attention_tpu_torch.ops.flash_attention import cross_attention_with_map, flash_attention
+
+
+def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    b, n, c = x.shape
+    return x.reshape(b, n, heads, c // heads).transpose(1, 2)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, n, d = x.shape
+    return x.transpose(1, 2).reshape(b, n, h * d)
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    heads: int,
+    *,
+    capture: bool = False,
+    capture_perhead: bool = False,
+    pww_mask: Optional[torch.Tensor] = None,
+    pww_gate=None,
+    use_flash: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Multi-head attention over [B, N, C] projections.
+
+    Args:
+      q: [B, Nq, C]; k, v: [B, Nk, C] (C = heads * head_dim).
+      capture: also return the head-mean probability map [B, Nq, Nk] (fp32).
+      capture_perhead: return the un-pooled probs [B, H, Nq, Nk] instead.
+      pww_mask: [Nq, Nk] paint-with-words additive mask (or None).
+      pww_gate: scalar = step_gate * log(1 + sigma_t) (or None).
+      use_flash: allow the kernels (see the module docstring).
+
+    Returns:
+      (out [B, Nq, C] in q.dtype, probs map fp32 or None)
+    """
+    capture = capture or capture_perhead
+    dtype = q.dtype
+    b, nq, c = q.shape
+    head_dim = c // heads
+    scale = 1.0 / (head_dim**0.5)
+
+    if use_flash and pww_mask is None and not capture_perhead:
+        if not capture and k.shape[1] == nq:
+            out = flash_attention(split_heads(q, heads), split_heads(k, heads), split_heads(v, heads), scale)
+            return merge_heads(out).to(dtype), None
+        if capture and k.shape[1] != nq:
+            out, pooled = cross_attention_with_map(
+                split_heads(q, heads), split_heads(k, heads), split_heads(v, heads), scale
+            )
+            return merge_heads(out).to(dtype), pooled
+
+    qh = split_heads(q, heads)
+    kh = split_heads(k, heads)
+    vh = split_heads(v, heads)
+
+    scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+
+    if pww_mask is not None and pww_gate is not None:
+        gate = torch.as_tensor(pww_gate, dtype=torch.float32, device=scores.device)
+        scores = scores + pww_mask.float()[None, None] * (0.4 * scores.max() * gate)
+
+    probs = torch.softmax(scores, dim=-1)
+    if capture_perhead:
+        pooled = probs  # [B, H, Nq, Nk] fp32
+    elif capture:
+        pooled = probs.mean(dim=1)  # [B, Nq, Nk] fp32
+    else:
+        pooled = None
+
+    out = torch.matmul(probs.to(dtype), vh)
+    return merge_heads(out), pooled

@@ -1,0 +1,118 @@
+"""The PyTorch port stands alone: no jax, no flax, nothing of the JAX package,
+and no silent CPU fallback for its CUDA default."""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import guided_attention_tpu_torch
+from guided_attention_tpu_torch.models.bundle import StableDiffusion
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tests run tiny tensors; one intra-op thread keeps them from
+    competing for cores with the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG_DIR = os.path.dirname(guided_attention_tpu_torch.__file__)
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|guided_attention_tpu)(\.|\s|$)", re.M)
+
+
+def _port_sources():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, names in os.walk(PKG_DIR):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def test_port_imports_with_jax_blocked():
+    """Every module of the port imports with jax/flax made unimportable, and
+    no module of the JAX package gets loaded along the way."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None; sys.modules['flax'] = None\n"
+        "import guided_attention_tpu_torch as p, chip_smoke\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'guided_attention_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'guided_attention_tpu' or m.startswith('guided_attention_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('n_modules', sum(1 for m in sys.modules if m.startswith('guided_attention_tpu_torch')))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    n = int(res.stdout.split("n_modules")[1])
+    assert n >= 20  # every module was really imported
+
+
+def test_port_sources_import_no_jax():
+    hits = []
+    for path in _port_sources():
+        with open(path) as f:
+            for m in _FORBIDDEN.finditer(f.read()):
+                hits.append((os.path.relpath(path, REPO), m.group(0).strip()))
+    assert not hits, hits
+    assert len(_port_sources()) >= 20
+
+
+def test_port_package_has_every_counterpart_module():
+    prefix = "guided_attention_tpu_torch."
+    names = {m.name[len(prefix):] for m in pkgutil.walk_packages(guided_attention_tpu_torch.__path__, prefix)}
+    for want in (
+        "config", "annotation", "pipeline", "runner", "models.unet", "models.clip", "models.vae",
+        "models.configs", "models.bundle", "models.convert", "models.tokenizer", "ops.attention",
+        "ops.flash_attention", "schedulers.ddim", "guidance.spec", "guidance.smoothing",
+        "guidance.losses", "guidance.custom",
+    ):
+        assert want in names, want
+    for src in ("flash_self_fwd.cu", "flash_self_bwd.cu", "cross_attention_map.cu", "common.cuh"):
+        assert os.path.exists(os.path.join(PKG_DIR, "csrc", src)), src
+
+
+def test_default_device_is_cuda_and_does_not_fall_back():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device, so the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        StableDiffusion.create("micro")
+    with pytest.raises(RuntimeError, match="cuda"):
+        StableDiffusion.create("micro", torch.float32, device="cuda:0")
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """On CPU tensors the wrappers run their plain versions and count no
+    kernel launch."""
+    from guided_attention_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launches()
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 2, 64, 16, generator=g) for _ in range(3))
+    out = fa.flash_attention(q, k, v)
+    ref = fa.flash_self_plain(q.reshape(2, 64, 16), k.reshape(2, 64, 16), v.reshape(2, 64, 16), 0.25)
+    torch.testing.assert_close(out.reshape(2, 64, 16), ref, rtol=0, atol=0)
+    kc, vc = torch.randn(1, 2, 77, 16, generator=g), torch.randn(1, 2, 77, 16, generator=g)
+    o, m = fa.cross_attention_with_map(q, kc, vc)
+    o2, m2 = fa.cross_attention_map_plain(q, kc, vc, 0.25)
+    torch.testing.assert_close(o, o2, rtol=0, atol=0)
+    torch.testing.assert_close(m, m2, rtol=0, atol=0)
+    assert all(v == 0 for v in fa.LAUNCHES.values())
+
+
+def test_kernel_launchers_refuse_cpu_tensors():
+    """The launch functions never compute on the CPU: they raise."""
+    from guided_attention_tpu_torch.ops import flash_attention as fa
+
+    x = torch.zeros(2, 64, 16, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_self_fwd(x, x, x, 0.25)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.cross_attention_map_fwd(x[None], x[None], x[None], 0.25)

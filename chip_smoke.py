@@ -7,14 +7,19 @@ Phases:
   1. the card's name and power limit, torch/CUDA versions, TF32 settings;
   2. build the CUDA kernels from csrc/ (nvcc, sm_90a);
   3. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes (bf16, forward and gradient), and time kernel, plain
-     version and a library yardstick with CUDA events (median of reps);
+     shapes its path gives it (bf16, forward and gradient): K1-K3 of the
+     generation path, V1 and W1 of the microbench; time kernel, plain
+     version and a library yardstick with CUDA events (median of 20
+     bursts of 10 calls, taking turns burst by burst);
   4. one guidance eval (loss and latent gradient) of full-width SD1.5 with
      the kernels against the same eval through the plain attention path;
   5. the main path: guided 512x512 SD1.5 generation, 50 DDIM steps, the
      two-object meta-prompt, default thresholds; one warm-up seed, then one
      timed seed with the kernels' launch counters zeroed just before it;
-  6. a {"kernels": [...]} line, then the last line
+     K1-K3 must each have launched; its model-FLOP share of the bf16 peak;
+  6. the microbench path (``perf_attn_kernel.run``, few reps) with the
+     counters zeroed just before it: V1 and W1 must each have launched;
+  7. a {"kernels": [...]} line, then the last line
      {"ok": true, "device": {...}}.
 
 Any failed check or exception exits non-zero before the last line. Weights
@@ -26,49 +31,17 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import statistics
-import subprocess
 import sys
 import time
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): bf16 tensor cores and HBM3
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
+# the kernels of each path: every one must launch when its path is driven
+MAIN_PATH_KERNELS = ("flash_self_fwd", "flash_self_bwd", "cross_attention_map_fwd")
+MICROBENCH_KERNELS = ("flash_self_fwd_v1", "flash_self_bwd_w1")
+MICROBENCH_REPS = 5
 
 
 def log(*a):
     print(*a, flush=True)
-
-
-def gpu_name_and_power() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout.strip() else "nvidia-smi unavailable"
-
-
-def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of per-call CUDA-event times (inputs stay in L2 between calls)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def max_err(a, b) -> float:
@@ -111,16 +84,26 @@ def check_close(name: str, out, ref, results: dict) -> float:
 
 
 def kernel_phase(results: dict) -> list:
-    """Phases 3: compare and time K1, K2, K3 at the main path's shapes."""
+    """Phase 3: compare and time K1, K2, K3, V1 and W1 at their paths' shapes."""
     import torch
     import torch.nn.functional as F
 
+    from guided_attention_tpu_torch import perf_attn_kernel as pak
+    from guided_attention_tpu_torch.ops import attention_variants as av
     from guided_attention_tpu_torch.ops import flash_attention as fa
+    from guided_attention_tpu_torch.runtime.flops import bound_ms
+    from guided_attention_tpu_torch.runtime.timing import alternating_ms
 
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device="cuda", dtype=torch.float32).to(torch.bfloat16)
+
+    def timed(kernel, plain, library=None) -> dict:
+        fns = {"ms": kernel, "plain_ms": plain}
+        if library is not None:
+            fns["library_ms"] = library
+        return {"library_ms": None, **alternating_ms(fns)}
 
     kernels = []
     # ---- K1 forward: CFG call [2*8, 4096, 40], eval call [8, 4096, 40], SD2.1 D=64
@@ -135,18 +118,42 @@ def kernel_phase(results: dict) -> list:
     # the row and the timings are the CFG call's, the last case above
     k1_err = max_err(o, ref)
     q4, k4, v4 = (t.reshape(2, 8, n, d) for t in (q, k, v))
-    flops = 4.0 * bh * n * n * d
-    nbytes = 4 * bh * n * d * 2 + bh * n * 4
-    b_ms, b_by = bound(flops, nbytes)
+    b_ms, b_by = bound_ms(pak.fwd_flops(bh, n, d), 4 * bh * n * d * 2 + bh * n * 4)
     kernels.append({
-        "name": "flash_self_fwd", "route": "cuda",
+        "name": "flash_self_fwd", "route": "cuda", "path": "main",
         "source": "guided_attention_tpu_torch/csrc/flash_self_fwd.cu",
         "replaces": "guided_attention_tpu/ops/flash_attention.py:114",
         "shape": [bh, n, d], "max_abs_err": k1_err, "tol": k1_tol,
-        "ms": cuda_time_ms(lambda: fa.flash_self_fwd(q, k, v, scale)),
-        "plain_ms": cuda_time_ms(lambda: fa.flash_self_plain(q, k, v, scale)),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)),
+        **timed(lambda: fa.flash_self_fwd(q, k, v, scale), lambda: fa.flash_self_plain(q, k, v, scale),
+                lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)),
+    })
+
+    # ---- V1 forward (microbench): both forward shapes, bf16_p 0 and 1
+    log("V1 flash_self_fwd_v1")
+    v1 = {}
+    for bh, n, d in pak.FWD_SHAPES[::-1]:
+        q, k, v = randn(bh, n, d), randn(bh, n, d), randn(bh, n, d)
+        scale = d**-0.5
+        for bp in (False, True):
+            o = av.flash_self_fwd_v1(q, k, v, scale, bp)
+            ref = av.flash_self_fwd_v1_plain(q, k, v, scale, bp)
+            torch.cuda.synchronize()
+            tol = check_close(f"V1 out bf16_p={int(bp)} [{bh},{n},{d}]", o, ref, results)
+            v1[bp] = {"max_abs_err": max_err(o, ref), "tol": tol}
+    # the row and the timings are at the CFG call's shape, FWD_SHAPES[0]
+    q4, k4, v4 = (t.reshape(1, bh, n, d) for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)  # noqa: E731
+    for bp in (False, True):
+        v1[bp].update(timed(lambda: av.flash_self_fwd_v1(q, k, v, scale, bp),
+                            lambda: av.flash_self_fwd_v1_plain(q, k, v, scale, bp), sdpa))
+    b_ms, b_by = bound_ms(pak.fwd_flops(bh, n, d), 4 * bh * n * d * 2)
+    kernels.append({
+        "name": "flash_self_fwd_v1", "route": "cuda", "path": "microbench",
+        "source": "guided_attention_tpu_torch/csrc/flash_self_fwd_v1.cu",
+        "replaces": "scripts/perf_attn_kernel.py:90",
+        "shape": [bh, n, d], "bf16_p": 0, **v1[False], "bound_ms": b_ms, "bound_by": b_by,
+        "bf16_p_1": v1[True],
     })
 
     # ---- K2 backward: eval call [8, 4096, 40], SD2.1 [5, 4096, 64]
@@ -165,23 +172,49 @@ def kernel_phase(results: dict) -> list:
         tols = [check_close(f"K2 {nm} [{bh},{n},{d}]", a, b, results)
                 for nm, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), (gq, gk, gv))]
         if d == 40:
-            flops = 10.0 * bh * n * n * d
-            nbytes = 8 * bh * n * d * 2 + bh * n * 4
-            b_ms, b_by = bound(flops, nbytes)
+            b_ms, b_by = bound_ms(pak.bwd_flops(bh, n, d), 8 * bh * n * d * 2 + bh * n * 4)
             q4, k4, v4 = (t.detach().reshape(1, bh, n, d).requires_grad_(True) for t in (q, k, v))
             o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
             do4 = do.reshape(1, bh, n, d)
             k2_row = {
-                "name": "flash_self_bwd", "route": "cuda",
+                "name": "flash_self_bwd", "route": "cuda", "path": "main",
                 "source": "guided_attention_tpu_torch/csrc/flash_self_bwd.cu",
                 "replaces": "guided_attention_tpu/ops/flash_attention.py:140",
                 "shape": [bh, n, d], "max_abs_err": max(errs), "tol": min(tols),
-                "ms": cuda_time_ms(lambda: fa.flash_self_bwd(q, k, v, o, do, lse, scale)),
-                "plain_ms": cuda_time_ms(lambda: torch.autograd.grad(out_ref, (qr, kr, vr), do, retain_graph=True)),
                 "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": cuda_time_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)),
+                **timed(lambda: fa.flash_self_bwd(q, k, v, o, do, lse, scale),
+                        lambda: torch.autograd.grad(out_ref, (qr, kr, vr), do, retain_graph=True),
+                        lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)),
             }
     kernels.append(k2_row)
+
+    # ---- W1 backward (microbench): [8, 4096, 40]; dq bf16, dk and dv fp32
+    log("W1 flash_self_bwd_w1")
+    bh, n, d = pak.BWD_SHAPE
+    q, k, v, do = randn(bh, n, d), randn(bh, n, d), randn(bh, n, d), randn(bh, n, d)
+    scale = d**-0.5
+    got = av.flash_self_bwd_w1(q, k, v, do, scale)
+    want = av.flash_self_bwd_w1_plain(q, k, v, do, scale)
+    torch.cuda.synchronize()
+    errs = [max_err(a, b) for a, b in zip(got, want)]
+    tols = [check_close(f"W1 {nm} [{bh},{n},{d}]", a, b, results) for nm, a, b in zip(("dq", "dk", "dv"), got, want)]
+    del got, want
+    q4, k4, v4 = (t.detach().reshape(1, bh, n, d).requires_grad_(True) for t in (q, k, v))
+    do4 = do.reshape(1, bh, n, d)
+    elems = bh * n * d
+    b_ms, b_by = bound_ms(pak.bwd_flops(bh, n, d), 5 * elems * 2 + 2 * elems * 4)
+    kernels.append({
+        "name": "flash_self_bwd_w1", "route": "cuda", "path": "microbench",
+        "source": "guided_attention_tpu_torch/csrc/flash_self_bwd_w1.cu",
+        "replaces": "scripts/perf_attn_kernel.py:139",
+        "shape": [bh, n, d], "max_abs_err": max(errs), "tol": min(tols),
+        "bound_ms": b_ms, "bound_by": b_by,
+        # library: SDPA forward and backward, W1's function from the same inputs
+        **timed(lambda: av.flash_self_bwd_w1(q, k, v, do, scale),
+                lambda: av.flash_self_bwd_w1_plain(q, k, v, do, scale),
+                lambda: torch.autograd.grad(F.scaled_dot_product_attention(q4, k4, v4, scale=scale),
+                                            (q4, k4, v4), do4)),
+    })
 
     # ---- K3 cross-attention with map: q [1,8,256,160], k/v [1,8,77,160]
     log("K3 cross_attention_map_fwd")
@@ -206,17 +239,16 @@ def kernel_phase(results: dict) -> list:
         check_close(f"K3 {nm}", a_, b_, results)
     flops = 4.0 * b * h * nq * nk * d
     nbytes = (2 * b * h * nq * d + 2 * b * h * nk * d) * 2 + b * nq * nk * 4
-    b_ms, b_by = bound(flops, nbytes)
+    b_ms, b_by = bound_ms(flops, nbytes)
     kernels.append({
-        "name": "cross_attention_map_fwd", "route": "cuda",
+        "name": "cross_attention_map_fwd", "route": "cuda", "path": "main",
         "source": "guided_attention_tpu_torch/csrc/cross_attention_map.cu",
         "replaces": "guided_attention_tpu/ops/flash_attention.py:241",
         "shape": [b, h, nq, nk, d], "max_abs_err": e_out, "tol": k3_tol,
         "map_max_abs_err": e_map, "map_tol": 1e-5,
-        "ms": cuda_time_ms(lambda: fa.cross_attention_map_fwd(q, k, v, scale)),
-        "plain_ms": cuda_time_ms(lambda: fa.cross_attention_map_plain(q, k, v, scale)),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
+        **timed(lambda: fa.cross_attention_map_fwd(q, k, v, scale),
+                lambda: fa.cross_attention_map_plain(q, k, v, scale)),
     })
     return kernels
 
@@ -266,14 +298,16 @@ def main() -> int:
 
     import numpy as np
 
-    from guided_attention_tpu_torch import workload
+    from guided_attention_tpu_torch import perf_attn_kernel, workload
     from guided_attention_tpu_torch.ops import build
     from guided_attention_tpu_torch.ops.flash_attention import LAUNCHES, reset_launches
+    from guided_attention_tpu_torch.runtime import flops
+    from guided_attention_tpu_torch.runtime.timing import card_name_and_power
 
     t_start = time.perf_counter()
     results: dict = {}
     # ---- 1. device
-    card = gpu_name_and_power()
+    card = card_name_and_power()
     log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -313,8 +347,9 @@ def main() -> int:
     out = workload.generate(pipe, workload.TIMED_SEED)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
+    launches = {name: LAUNCHES[name] for name in MAIN_PATH_KERNELS}
     d = out.diagnostics
+    gen_flops = flops.generation_flops(sd.unet.config, d, workload.STEPS)
     img = out.images_u8
     main = {
         "s_per_image": sec,
@@ -328,15 +363,29 @@ def main() -> int:
         "latents_finite": bool(np.isfinite(out.latents.astype(np.float32)).all()),
         "image_std": float(img.std()),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "unet_tflop": gen_flops / 1e12,
+        "mfu": flops.mfu(gen_flops, sec),
         "launches": launches,
     }
     results["main"] = main
     log("main path: " + json.dumps(main))
+    log(f"main path model-FLOP share: {main['unet_tflop']:.3f} TFLOP of UNet work in {sec:.3f} s = "
+        f"{100 * main['mfu']:.3f}% of the {flops.H100_BF16_PEAK_FLOPS / 1e12:.0f} TF/s bf16 peak ({card})")
     if img.shape != (1, 512, 512, 3) or not main["latents_finite"] or main["image_std"] <= 0:
         raise SystemExit("main path output is malformed (shape, finiteness or constant image)")
+
+    # ---- 6. the microbench path
+    reset_launches()
+    bench = perf_attn_kernel.run(reps=MICROBENCH_REPS)
+    torch.cuda.synchronize()
+    perf_attn_kernel.report(bench)
+    results["microbench"] = bench
+    launches.update({name: LAUNCHES[name] for name in MICROBENCH_KERNELS})
+    log("launches: " + json.dumps(launches))
     for name, count in launches.items():
         if count <= 0:
-            raise SystemExit(f"kernel {name} was not launched on the main path")
+            path = "main" if name in MAIN_PATH_KERNELS else "microbench"
+            raise SystemExit(f"kernel {name} was not launched on the {path} path")
     for row in kernels:
         row["launches"] = launches[row["name"]]
 

@@ -8,7 +8,8 @@ name keyed by a hash of the sources and flags: the first call in a fresh
 checkout builds it, later calls load it.
 
 Every C entry point returns the ``cudaError_t`` of its launches; the
-wrappers in ``ops/flash_attention.py`` raise when it is not 0.
+wrappers in ``ops/flash_attention.py`` and ``ops/attention_variants.py`` raise
+when it is not 0.
 """
 from __future__ import annotations
 
@@ -24,7 +25,10 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
-SOURCES = ("flash_self_fwd.cu", "flash_self_bwd.cu", "cross_attention_map.cu")
+SOURCES = (
+    "flash_self_fwd.cu", "flash_self_bwd.cu", "cross_attention_map.cu",
+    "flash_self_fwd_v1.cu", "flash_self_bwd_w1.cu",
+)
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -42,6 +46,10 @@ SIGNATURES = {
     "ga_flash_self_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     # q, k, v, o, map, b, h, nq, nk, d, scale, stream
     "ga_cross_attention_map_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, o, bh, n, d, scale, bf16_p, stream
+    "ga_flash_self_fwd_v1": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # q, k, v, do, dq, dk, dv, bh, n, d, scale, stream
+    "ga_flash_self_bwd_w1": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()

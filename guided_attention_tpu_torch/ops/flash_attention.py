@@ -46,7 +46,12 @@ from typing import Optional, Tuple
 
 import torch
 
-LAUNCHES = {"flash_self_fwd": 0, "flash_self_bwd": 0, "cross_attention_map_fwd": 0}
+# kernel launches per wrapper: K1-K3 here, the microbench variants V1 and W1
+# in ``ops/attention_variants.py``
+LAUNCHES = {
+    "flash_self_fwd": 0, "flash_self_bwd": 0, "cross_attention_map_fwd": 0,
+    "flash_self_fwd_v1": 0, "flash_self_bwd_w1": 0,
+}
 
 
 def reset_launches() -> None:

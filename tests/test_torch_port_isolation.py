@@ -72,10 +72,12 @@ def test_port_package_has_every_counterpart_module():
         "config", "annotation", "pipeline", "runner", "models.unet", "models.clip", "models.vae",
         "models.configs", "models.bundle", "models.convert", "models.tokenizer", "ops.attention",
         "ops.flash_attention", "schedulers.ddim", "guidance.spec", "guidance.smoothing",
-        "guidance.losses", "guidance.custom",
+        "guidance.losses", "guidance.custom", "ops.attention_variants", "runtime.flops",
+        "runtime.timing", "perf_attn_kernel",
     ):
         assert want in names, want
-    for src in ("flash_self_fwd.cu", "flash_self_bwd.cu", "cross_attention_map.cu", "common.cuh"):
+    for src in ("flash_self_fwd.cu", "flash_self_bwd.cu", "cross_attention_map.cu", "flash_self_fwd_v1.cu",
+                "flash_self_bwd_w1.cu", "common.cuh"):
         assert os.path.exists(os.path.join(PKG_DIR, "csrc", src)), src
 
 

@@ -8,9 +8,11 @@ Phases:
   2. build the CUDA kernels from csrc/ (nvcc, sm_90a);
   3. hold each kernel against its plain PyTorch version on the card at the
      shapes its path gives it (bf16, forward and gradient): K1-K3 of the
-     generation path, V1 and W1 of the microbench; time kernel, plain
+     generation path (K1's logsumexp too, and every K1 tile configuration
+     at a ragged shape), V1 and W1 of the microbench; time kernel, plain
      version and a library yardstick with CUDA events (median of 20
-     bursts of 10 calls, taking turns burst by burst);
+     bursts of 10 calls, taking turns burst by burst; SDPA's backward
+     replayed from a CUDA graph, so that the host does not time it);
   4. one guidance eval (loss and latent gradient) of full-width SD1.5 with
      the kernels against the same eval through the plain attention path;
   5. the main path: guided 512x512 SD1.5 generation, 50 DDIM steps, the
@@ -66,6 +68,10 @@ def check(name: str, err: float, tol: float, results: dict, **extra) -> None:
 #   ||out - ref||_2 <= 2^-7 * ||ref||_2 (each rounding costs about 2^-9.5
 #   relative rms; a 1% error in the scale moves the output by about 1% rms)
 MAX_REL, RMS_REL = 2.0**-5, 2.0**-7
+# K1's logsumexp (fp32, natural log, values near ln N): fp32 scores of the
+# same bf16 inputs on both sides, summed in another order; the limit is
+# absolute, as K2 uses it (exp(s - lse)): 2^-7 moves P by under 0.8%.
+LSE_TOL = 2.0**-7
 
 
 def check_close(name: str, out, ref, results: dict) -> float:
@@ -106,24 +112,35 @@ def kernel_phase(results: dict) -> list:
         return {"library_ms": None, **alternating_ms(fns)}
 
     kernels = []
-    # ---- K1 forward: CFG call [2*8, 4096, 40], eval call [8, 4096, 40], SD2.1 D=64
+    # ---- K1 forward: SD2.1 D=64, a ragged [3, 1000, 40] (TMA zero-fill and
+    # the -inf key mask), eval call [8, 4096, 40], CFG call [2*8, 4096, 40]
     log("K1 flash_self_fwd")
-    for bh, n, d in ((10, 4096, 64), (8, 4096, 40), (16, 4096, 40)):
+    for bh, n, d in ((10, 4096, 64), (3, 1000, 40), (8, 4096, 40), (16, 4096, 40)):
         q, k, v = randn(bh, n, d), randn(bh, n, d), randn(bh, n, d)
         scale = d**-0.5
-        o, _lse = fa.flash_self_fwd(q, k, v, scale)
-        ref = fa.flash_self_plain(q, k, v, scale)
+        o, lse = fa.flash_self_fwd(q, k, v, scale)
+        ref, lse_ref = fa.flash_self_fwd_plain(q, k, v, scale)
         torch.cuda.synchronize()
         k1_tol = check_close(f"K1 out [{bh},{n},{d}]", o, ref, results)
+        k1_lse_err = max_err(lse, lse_ref)
+        check(f"K1 lse [{bh},{n},{d}]", k1_lse_err, LSE_TOL, results)
+        if (bh, n, d) in ((3, 1000, 40), (8, 4096, 40)):
+            # the microbench's other tile configurations, off the main path
+            for c in range(len(fa.K1_TILE_CONFIGS)):
+                oc, lc = fa.flash_self_fwd_tiles(q, k, v, scale, c)
+                torch.cuda.synchronize()
+                check_close(f"K1 tiles {fa.K1_TILE_CONFIGS[c]} out [{bh},{n},{d}]", oc, ref, results)
+                check(f"K1 tiles {fa.K1_TILE_CONFIGS[c]} lse [{bh},{n},{d}]", max_err(lc, lse_ref), LSE_TOL, results)
     # the row and the timings are the CFG call's, the last case above
     k1_err = max_err(o, ref)
     q4, k4, v4 = (t.reshape(2, 8, n, d) for t in (q, k, v))
-    b_ms, b_by = bound_ms(pak.fwd_flops(bh, n, d), 4 * bh * n * d * 2 + bh * n * 4)
+    b_ms, b_by = bound_ms(pak.fwd_flops(bh, n, d), 4 * bh * n * d * 2 + bh * n * 4, exps=bh * n * n)
     kernels.append({
         "name": "flash_self_fwd", "route": "cuda", "path": "main",
         "source": "guided_attention_tpu_torch/csrc/flash_self_fwd.cu",
         "replaces": "guided_attention_tpu/ops/flash_attention.py:114",
         "shape": [bh, n, d], "max_abs_err": k1_err, "tol": k1_tol,
+        "lse_max_abs_err": k1_lse_err, "lse_tol": LSE_TOL,
         "bound_ms": b_ms, "bound_by": b_by,
         **timed(lambda: fa.flash_self_fwd(q, k, v, scale), lambda: fa.flash_self_plain(q, k, v, scale),
                 lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)),
@@ -147,7 +164,7 @@ def kernel_phase(results: dict) -> list:
     for bp in (False, True):
         v1[bp].update(timed(lambda: av.flash_self_fwd_v1(q, k, v, scale, bp),
                             lambda: av.flash_self_fwd_v1_plain(q, k, v, scale, bp), sdpa))
-    b_ms, b_by = bound_ms(pak.fwd_flops(bh, n, d), 4 * bh * n * d * 2)
+    b_ms, b_by = bound_ms(pak.fwd_flops(bh, n, d), 4 * bh * n * d * 2, exps=bh * n * n)
     kernels.append({
         "name": "flash_self_fwd_v1", "route": "cuda", "path": "microbench",
         "source": "guided_attention_tpu_torch/csrc/flash_self_fwd_v1.cu",
@@ -172,10 +189,9 @@ def kernel_phase(results: dict) -> list:
         tols = [check_close(f"K2 {nm} [{bh},{n},{d}]", a, b, results)
                 for nm, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), (gq, gk, gv))]
         if d == 40:
-            b_ms, b_by = bound_ms(pak.bwd_flops(bh, n, d), 8 * bh * n * d * 2 + bh * n * 4)
-            q4, k4, v4 = (t.detach().reshape(1, bh, n, d).requires_grad_(True) for t in (q, k, v))
-            o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
-            do4 = do.reshape(1, bh, n, d)
+            # one exponential per pair, what the algorithm needs (K2 recomputes P twice)
+            b_ms, b_by = bound_ms(pak.bwd_flops(bh, n, d), 8 * bh * n * d * 2 + bh * n * 4, exps=bh * n * n)
+            _fwd, sdpa_bwd, _grads = pak.sdpa_graphs(q, k, v, do, scale)
             k2_row = {
                 "name": "flash_self_bwd", "route": "cuda", "path": "main",
                 "source": "guided_attention_tpu_torch/csrc/flash_self_bwd.cu",
@@ -184,7 +200,7 @@ def kernel_phase(results: dict) -> list:
                 "bound_ms": b_ms, "bound_by": b_by,
                 **timed(lambda: fa.flash_self_bwd(q, k, v, o, do, lse, scale),
                         lambda: torch.autograd.grad(out_ref, (qr, kr, vr), do, retain_graph=True),
-                        lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)),
+                        sdpa_bwd),
             }
     kernels.append(k2_row)
 
@@ -199,21 +215,23 @@ def kernel_phase(results: dict) -> list:
     errs = [max_err(a, b) for a, b in zip(got, want)]
     tols = [check_close(f"W1 {nm} [{bh},{n},{d}]", a, b, results) for nm, a, b in zip(("dq", "dk", "dv"), got, want)]
     del got, want
-    q4, k4, v4 = (t.detach().reshape(1, bh, n, d).requires_grad_(True) for t in (q, k, v))
-    do4 = do.reshape(1, bh, n, d)
+    sdpa_fwd, sdpa_bwd, _grads = pak.sdpa_graphs(q, k, v, do, scale)
+
+    def sdpa_fwd_bwd():
+        sdpa_fwd()
+        sdpa_bwd()
+
     elems = bh * n * d
-    b_ms, b_by = bound_ms(pak.bwd_flops(bh, n, d), 5 * elems * 2 + 2 * elems * 4)
+    b_ms, b_by = bound_ms(pak.bwd_flops(bh, n, d), 5 * elems * 2 + 2 * elems * 4, exps=bh * n * n)
     kernels.append({
         "name": "flash_self_bwd_w1", "route": "cuda", "path": "microbench",
         "source": "guided_attention_tpu_torch/csrc/flash_self_bwd_w1.cu",
         "replaces": "scripts/perf_attn_kernel.py:139",
         "shape": [bh, n, d], "max_abs_err": max(errs), "tol": min(tols),
         "bound_ms": b_ms, "bound_by": b_by,
-        # library: SDPA forward and backward, W1's function from the same inputs
+        # library: SDPA forward and backward (CUDA graphs), W1's function from the same inputs
         **timed(lambda: av.flash_self_bwd_w1(q, k, v, do, scale),
-                lambda: av.flash_self_bwd_w1_plain(q, k, v, do, scale),
-                lambda: torch.autograd.grad(F.scaled_dot_product_attention(q4, k4, v4, scale=scale),
-                                            (q4, k4, v4), do4)),
+                lambda: av.flash_self_bwd_w1_plain(q, k, v, do, scale), sdpa_fwd_bwd),
     })
 
     # ---- K3 cross-attention with map: q [1,8,256,160], k/v [1,8,77,160]
@@ -321,8 +339,13 @@ def main() -> int:
     build.load_library()
     results["build_s"] = time.perf_counter() - t0
     log(f"kernels built/loaded in {results['build_s']:.1f} s")
+    src = ""
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        src = line[3:] if line.startswith("== ") else src
+        # -Xptxas -v: registers, spills; for K1 also which kernel, and ptxas's
+        # warnings and advisories (C75xx: wgmma serialized, warpgroup.arrive injected)
+        k1 = src == "flash_self_fwd.cu" and any(w in line for w in ("entry function", "arning", "C75"))
+        if "registers" in line or "spill" in line or line.startswith("==") or k1:
             log("  " + line.strip())
 
     # ---- 3. kernels against their plain versions

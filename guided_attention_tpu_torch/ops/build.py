@@ -29,7 +29,7 @@ SOURCES = (
     "flash_self_fwd.cu", "flash_self_bwd.cu", "cross_attention_map.cu",
     "flash_self_fwd_v1.cu", "flash_self_bwd_w1.cu",
 )
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "hopper.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,6 +42,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     # q, k, v, o, lse, bh, n, d, scale, stream
     "ga_flash_self_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # q, k, v, o, lse, bh, n, d, scale, tile configuration, stream
+    "ga_flash_self_fwd_config": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # q, k, v, o, do, lse, delta, dq, dk, dv, bh, n, d, scale, stream
     "ga_flash_self_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     # q, k, v, o, map, b, h, nq, nk, d, scale, stream

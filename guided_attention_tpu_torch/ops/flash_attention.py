@@ -9,11 +9,14 @@ Three kernels, counterparts of the three Pallas kernels of the JAX package's
   float32 log-sum-exp per row for the backward. On the TPU the whole K/V of
   one (b, h) sat in VMEM for a single softmax pass; at N = 4096, D = 40 one K
   alone is 320 KB, more than a block's 227 KB of shared memory, so the kernel
-  tiles the keys with an online softmax. Bound on the H100: 4*N^2*D
-  operations per (b, h) on the bf16 tensor cores (and, at head_dim 40, the
-  N^2 exponentials); it runs both products on the tensor cores through WMMA
-  bf16 fragments and keeps S, P and O in shared memory, never in device
-  memory.
+  tiles the keys with an online softmax. Bound on the H100: at head_dim 40
+  the N^2 exponentials of the special-function units (about 3.9e12/s) weigh
+  more than the 4*N^2*D tensor-core operations per (b, h). Both products run
+  on `wgmma` with S, P and O in registers, K/V tiles arrive by TMA into a
+  ring of shared-memory stages, and each warpgroup runs the softmax of one
+  key tile while the P V product of the previous one is in flight. Its tile
+  shapes are template parameters (``K1_TILE_CONFIGS``); the main path runs
+  ``K1_MAIN_CONFIG``, the microbench all of them (``flash_self_fwd_tiles``).
 * K2 ``flash_self_bwd`` (csrc/flash_self_bwd.cu) replaces ``_self_bwd`` /
   ``_self_bwd_kernel`` (custom VJP ``_flash_bh_bwd``). The TPU kernel
   carried dK/dV in fp32 across sequential q-block grid steps; CUDA blocks
@@ -99,8 +102,23 @@ def flash_self_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: f
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
-def flash_self_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
-    """Launch K1 on [BH, N, D] bf16: returns (out bf16, lse f32 [BH, N])."""
+def flash_self_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
+    """Plain version of K1 with its second output: (out in the input dtype,
+    natural-log logsumexp of the scaled float32 scores [BH, N], float32)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    lse = torch.logsumexp(s, dim=-1)
+    out = torch.matmul(torch.exp(s - lse[..., None]), v.float()).to(q.dtype)
+    return out, lse
+
+
+# K1's tile configurations, (queries, keys, stages) per block, in the order
+# of csrc/flash_self_fwd.cu's configuration index; the C entry point of the
+# main path runs K1_MAIN_CONFIG, the one measured fastest on the H100.
+K1_TILE_CONFIGS = ((128, 128, 3), (128, 64, 3), (64, 128, 2))
+K1_MAIN_CONFIG = 0
+
+
+def _launch_k1(q, k, v, scale: float, config: Optional[int]):
     from guided_attention_tpu_torch.ops.build import load_library
 
     _check_cuda_inputs("flash_self_fwd", torch.bfloat16, q, k, v)
@@ -108,16 +126,33 @@ def flash_self_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
         raise ValueError(f"flash_self_fwd: shapes {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
     bh, n, d = q.shape
     _check_head_dim("flash_self_fwd", d)
+    if config is not None and (config not in range(len(K1_TILE_CONFIGS)) or (d != 40 and config != K1_MAIN_CONFIG)):
+        raise ValueError(f"flash_self_fwd: no tile configuration {config} at head_dim {d}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_self_fwd: TMA needs 16-byte aligned q, k and v")
     o = torch.empty_like(q)
     lse = torch.empty((bh, n), dtype=torch.float32, device=q.device)
     lib = load_library()
-    err = lib.ga_flash_self_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        bh, n, d, float(scale), _stream(q),
-    )
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, n, d, float(scale))
+    if config is None:
+        err = lib.ga_flash_self_fwd(*args, _stream(q))
+    else:
+        err = lib.ga_flash_self_fwd_config(*args, config, _stream(q))
     _check("flash_self_fwd", err)
     LAUNCHES["flash_self_fwd"] += 1
     return o, lse
+
+
+def flash_self_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
+    """Launch K1 on [BH, N, D] bf16: returns (out bf16, lse f32 [BH, N])."""
+    return _launch_k1(q, k, v, scale, None)
+
+
+def flash_self_fwd_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, config: int):
+    """K1 with the tile configuration ``K1_TILE_CONFIGS[config]`` (any of
+    them at head_dim 40, only ``K1_MAIN_CONFIG`` at 64): the microbench's
+    sweep. Same contract as ``flash_self_fwd``."""
+    return _launch_k1(q, k, v, scale, config)
 
 
 def flash_self_bwd(q, k, v, o, do, lse, scale: float):

@@ -6,13 +6,17 @@ The CUDA counterpart of the JAX package's ``scripts/perf_attn_kernel.py``.
 Rows, each a kernel of ``ops/`` or PyTorch's fused attention as yardstick:
 
   forward at [16, 4096, 40] (the CFG call) and [8, 4096, 40] (the eval call):
-    K1 ``flash_self_fwd``; V1 ``flash_self_fwd_v1`` with bf16_p 0 and 1 (the
-    ones-column denominator); SDPA (``scaled_dot_product_attention``);
+    K1 ``flash_self_fwd`` (the main path's tile configuration) and one row
+    per tile configuration of K1 (``K1 c<i> (BQ,BK,stages)``,
+    ``flash_self_fwd_tiles``); V1 ``flash_self_fwd_v1`` with bf16_p 0 and 1
+    (the ones-column denominator); SDPA (``scaled_dot_product_attention``);
   backward at [8, 4096, 40] (the eval call):
     K2 ``flash_self_bwd`` given K1's output and logsumexp; K1+K2; W1
     ``flash_self_bwd_w1`` (no saved output or logsumexp); SDPA's backward
     given its forward, and SDPA forward+backward (W1's function from the
-    same inputs).
+    same inputs), both replayed from CUDA graphs (``sdpa_graphs``): through
+    autograd the host takes longer per call than the card, so only a graph
+    times SDPA's device work.
 
 For each row: the median over ``--reps`` repetitions of the per-call time
 of a burst of 10 calls between two CUDA events (``runtime/timing.py``), the
@@ -20,12 +24,13 @@ variants of one shape taking turns burst by burst, after warm-up calls, with
 inputs warm in L2 (the largest input set, q/k/v at [16, 4096, 40], is 15.7 MB
 of the 50 MB); TF/s of the function's own operations (4*BH*N^2*D forward,
 10*BH*N^2*D backward) and their share of the H100's 989 TF/s bf16 peak; the
-least time the card could take (``runtime/flops.bound_ms``); and the
-numerics: max |out - ref| / max |ref| against the row's plain PyTorch
+least time the card could take (``runtime/flops.bound_ms``, which counts
+the one exponential per (query, key) pair beside the products and bytes);
+and the numerics: max |out - ref| / max |ref| against the row's plain PyTorch
 version (over dq, dk and dv for a backward) and, for V1 and W1, against
-K1's and K2's output. The kernels' tile sizes are compile-time constants,
-so the TPU script's block sweeps become one row per kernel. A failed build
-or launch raises: nothing falls back.
+K1's and K2's output. The TPU script's block sweeps become K1's tile rows;
+the other kernels' tiles are compile-time constants, one row each. A failed
+build or launch raises: nothing falls back.
 
 Prints a table, the card's name and power limit, and one JSON line; writes
 the same JSON to ``chiprun_out/perf_attn_kernel.json``.
@@ -63,15 +68,51 @@ def rel_err(out, ref) -> float:
     return float((out.float() - ref).abs().max() / ref.abs().max())
 
 
+def k1_tiles_name(config: int) -> str:
+    """Row name of K1's tile configuration ``config``: its (queries, keys,
+    stages) per block."""
+    return f"K1 c{config} ({','.join(map(str, fa.K1_TILE_CONFIGS[config]))})"
+
+
+def sdpa_graphs(q, k, v, do, scale: float, warmup: int = 3):
+    """SDPA's forward and its backward through autograd on [BH, N, D]
+    tensors, each captured in a CUDA graph on one side stream (the backward
+    keeps its saved tensors: ``retain_graph``). Returns (forward replay,
+    backward replay, the backward's (dq, dk, dv) as [BH, N, D]); the
+    forward has been replayed once, so the backward reads a real output.
+    A replay launches the captured kernels without the host's per-op work,
+    so its time is the device's."""
+    import torch.nn.functional as F
+
+    bh, n, d = q.shape
+    q4, k4, v4 = (t.detach().reshape(1, bh, n, d).requires_grad_(True) for t in (q, k, v))
+    do4 = do.reshape(1, bh, n, d)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            torch.autograd.grad(F.scaled_dot_product_attention(q4, k4, v4, scale=scale), (q4, k4, v4), do4)
+    torch.cuda.current_stream().wait_stream(side)
+    fwd, bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(fwd, stream=side):
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+    with torch.cuda.graph(bwd, stream=side, pool=fwd.pool()):
+        grads = torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)
+    fwd.replay()
+    bwd.replay()
+    return fwd.replay, bwd.replay, [g.reshape(bh, n, d) for g in grads]
+
+
 def _inputs(count: int, shape, seed: int):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return [torch.randn(shape, generator=g, device="cuda", dtype=torch.float32).to(torch.bfloat16) for _ in range(count)]
 
 
 def _rows(shape, flops: float, nbytes: Dict[str, float], ms: Dict[str, float], errs: Dict[str, dict]) -> List[dict]:
+    bh, n, _d = shape
     rows = []
     for name, t in ms.items():
-        b_ms, b_by = bound_ms(flops, nbytes[name])
+        b_ms, b_by = bound_ms(flops, nbytes[name], exps=bh * n * n)
         rows.append({
             "variant": name, "shape": list(shape), "ms": t, "tflops": flops / t / 1e9,
             "pct_peak": 100.0 * flops / (t * 1e-3) / H100_BF16_PEAK_FLOPS,
@@ -94,6 +135,11 @@ def forward_rows(bh: int, n: int, d: int, reps: int, seed: int = 0) -> List[dict
             "SDPA": {"err_vs_plain": rel_err(F.scaled_dot_product_attention(q4, k4, v4, scale=scale).reshape(q.shape), ref)},
         }
         fns = {"K1": lambda: fa.flash_self_fwd(q, k, v, scale)}
+        for c in range(len(fa.K1_TILE_CONFIGS)):
+            name = k1_tiles_name(c)
+            o, _ = fa.flash_self_fwd_tiles(q, k, v, scale, c)
+            errs[name] = {"err_vs_plain": rel_err(o, ref), "err_vs_k1": rel_err(o, o_k1)}
+            fns[name] = lambda c=c: fa.flash_self_fwd_tiles(q, k, v, scale, c)
         for bp in (0, 1):
             name = f"V1 bf16_p={bp}"
             o = av.flash_self_fwd_v1(q, k, v, scale, bool(bp))
@@ -106,14 +152,11 @@ def forward_rows(bh: int, n: int, d: int, reps: int, seed: int = 0) -> List[dict
         del ref
         ms = alternating_ms(fns, reps)
     io = 4.0 * bh * n * d * 2  # q, k, v read, o written, bf16
-    nbytes = {name: io for name in fns}
-    nbytes["K1"] += bh * n * 4  # and the fp32 logsumexp
+    nbytes = {name: io + (bh * n * 4 if name.startswith("K1") else 0) for name in fns}  # and K1's fp32 logsumexp
     return _rows((bh, n, d), fwd_flops(bh, n, d), nbytes, ms, {name: errs[name] for name in fns})
 
 
 def backward_rows(bh: int, n: int, d: int, reps: int, seed: int = 1) -> List[dict]:
-    import torch.nn.functional as F
-
     q, k, v, do = _inputs(4, (bh, n, d), seed)
     scale = d**-0.5
     qr, kr, vr = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
@@ -126,34 +169,31 @@ def backward_rows(bh: int, n: int, d: int, reps: int, seed: int = 1) -> List[dic
     o, lse = fa.flash_self_fwd(q, k, v, scale)
     g_k2 = fa.flash_self_bwd(q, k, v, o, do, lse, scale)
     g_w1 = av.flash_self_bwd_w1(q, k, v, do, scale)
-    q4, k4, v4 = (t.detach().reshape(1, bh, n, d).requires_grad_(True) for t in (q, k, v))
-    do4 = do.reshape(1, bh, n, d)
-    o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
-    g_sdpa = [g.reshape(q.shape) for g in torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)]
+    sdpa_fwd, sdpa_bwd, g_sdpa = sdpa_graphs(q, k, v, do, scale)
     errs = {
         "K2": {"err_vs_plain": worst(g_k2, ref)},
         "K1+K2": {"err_vs_plain": worst(g_k2, ref)},
         "W1": {"err_vs_plain": worst(g_w1, av.flash_self_bwd_w1_plain(q, k, v, do, scale)),
                "err_vs_k2": worst(g_w1, g_k2)},
-        "SDPA bwd": {"err_vs_plain": worst(g_sdpa, ref)},
-        "SDPA fwd+bwd": {"err_vs_plain": worst(g_sdpa, ref)},
+        "SDPA bwd (graph)": {"err_vs_plain": worst(g_sdpa, ref)},
+        "SDPA fwd+bwd (graph)": {"err_vs_plain": worst(g_sdpa, ref)},
     }
-    del ref, g_k2, g_w1, g_sdpa
+    del ref, g_k2, g_w1
 
     def k1k2():
         o, lse = fa.flash_self_fwd(q, k, v, scale)
         return fa.flash_self_bwd(q, k, v, o, do, lse, scale)
 
     def sdpa_fwd_bwd():
-        out = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
-        return torch.autograd.grad(out, (q4, k4, v4), do4)
+        sdpa_fwd()
+        sdpa_bwd()
 
     fns = {
         "K2": lambda: fa.flash_self_bwd(q, k, v, o, do, lse, scale),
         "K1+K2": k1k2,
         "W1": lambda: av.flash_self_bwd_w1(q, k, v, do, scale),
-        "SDPA bwd": lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True),
-        "SDPA fwd+bwd": sdpa_fwd_bwd,
+        "SDPA bwd (graph)": sdpa_bwd,
+        "SDPA fwd+bwd (graph)": sdpa_fwd_bwd,
     }
     ms = alternating_ms(fns, reps)
     elems = bh * n * d
@@ -161,8 +201,8 @@ def backward_rows(bh: int, n: int, d: int, reps: int, seed: int = 1) -> List[dic
         "K2": 5 * elems * 2 + bh * n * 4 + 3 * elems * 2,  # q, k, v, o, do, lse in; dq, dk, dv out
         "K1+K2": 4 * elems * 2 + 3 * elems * 2,  # q, k, v, do in; dq, dk, dv out
         "W1": 4 * elems * 2 + elems * 2 + 2 * elems * 4,  # dk, dv in fp32
-        "SDPA bwd": 5 * elems * 2 + bh * n * 4 + 3 * elems * 2,
-        "SDPA fwd+bwd": 4 * elems * 2 + 3 * elems * 2,
+        "SDPA bwd (graph)": 5 * elems * 2 + bh * n * 4 + 3 * elems * 2,
+        "SDPA fwd+bwd (graph)": 4 * elems * 2 + 3 * elems * 2,
     }
     return _rows((bh, n, d), bwd_flops(bh, n, d), nbytes, ms, errs)
 
@@ -177,11 +217,11 @@ def run(reps: int = 30) -> dict:
 
 
 def report(result: dict) -> None:
-    print(f"{'variant':14s} {'shape':16s} {'ms':>8s} {'TF/s':>7s} {'%peak':>6s} {'bound ms':>9s} "
+    print(f"{'variant':20s} {'shape':16s} {'ms':>8s} {'TF/s':>7s} {'%peak':>6s} {'bound ms':>9s} "
           f"{'err/plain':>10s} {'err/K1|K2':>10s}", flush=True)
     for r in result["rows"]:
         vs = r.get("err_vs_k1", r.get("err_vs_k2"))
-        print(f"{r['variant']:14s} {str(r['shape']):16s} {r['ms']:8.3f} {r['tflops']:7.1f} {r['pct_peak']:6.2f} "
+        print(f"{r['variant']:20s} {str(r['shape']):16s} {r['ms']:8.3f} {r['tflops']:7.1f} {r['pct_peak']:6.2f} "
               f"{r['bound_ms']:9.4f} {r['err_vs_plain']:10.2e} {'' if vs is None else f'{vs:10.2e}'}", flush=True)
     print(result["card"], flush=True)
 

@@ -17,6 +17,10 @@ from guided_attention_tpu_torch.models.unet import UNetConfig
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
 H100_BF16_PEAK_FLOPS = 989e12  # bf16 tensor cores
 H100_HBM_BYTES_PER_S = 3.35e12  # HBM3
+# exp2 on the special-function units: 16 results per SM per clock (CUDA C++
+# Programming Guide, arithmetic throughput table, compute capability 9.0)
+# x 132 SMs x ~1.83 GHz = 3.87e12/s, rounded as FlashAttention-3 does
+H100_EXP2_PER_S = 3.9e12
 
 
 def _conv(h: int, w: int, cin: int, cout: int, k: int = 3) -> float:
@@ -155,11 +159,17 @@ def mfu(flops: float, seconds: float, peak: float = H100_BF16_PEAK_FLOPS) -> flo
     return flops / seconds / peak
 
 
-def bound_ms(flops: float, nbytes: float) -> Tuple[float, str]:
+def bound_ms(flops: float, nbytes: float, exps: float = 0.0) -> Tuple[float, str]:
     """The least time the H100 could take for work of ``flops`` bf16
-    tensor-core operations that must move ``nbytes`` (each input read once,
-    each output written once): the larger of the two times, in ms, and which
-    of "operations" and "bytes" it is."""
-    t_ops = flops / H100_BF16_PEAK_FLOPS * 1e3
-    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    tensor-core operations and ``exps`` exponentials that must move
+    ``nbytes`` (each input read once, each output written once): the largest
+    of the three times, in ms, and which of "operations", "exp" and "bytes"
+    it is. Attention does one exponential per (query, key) pair, which at
+    head dim 40 takes longer than its products."""
+    times = {
+        "operations": flops / H100_BF16_PEAK_FLOPS * 1e3,
+        "exp": exps / H100_EXP2_PER_S * 1e3,
+        "bytes": nbytes / H100_HBM_BYTES_PER_S * 1e3,
+    }
+    by = max(times, key=times.get)
+    return times[by], by

@@ -65,6 +65,23 @@ def test_flash_self_plain_matches_pallas(d):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=5e-5, rtol=0)
 
 
+@pytest.mark.parametrize("d", [40, 64])
+def test_flash_self_fwd_plain_lse_matches_jax(d):
+    """K1's second output, the logsumexp K2 reads to recompute P: the natural
+    log of the sum of exp(scale * q k^T) per row, held against
+    ``jax.nn.logsumexp`` of the JAX side's scaled scores. 1e-5 absolute:
+    fp32 on both sides, the sums taken in another order."""
+    BH, N = 2, 256
+    scale = d**-0.5
+    q, k, v = _arrays(100 + d, (BH, N, d), (BH, N, d), (BH, N, d))
+    want = jax.nn.logsumexp(jnp.einsum("bqd,bkd->bqk", q, k) * scale, axis=-1)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    out, lse = tfa.flash_self_fwd_plain(tq, tk, tv, scale)
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (BH, N)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(out.numpy(), tfa.flash_self_plain(tq, tk, tv, scale).numpy(), atol=2e-5, rtol=0)
+
+
 def test_cross_map_plain_matches_pallas():
     B, H, NQ, K, D = 1, 2, 64, 77, 40
     q, k, v, w, wm = _arrays(7, (B, H, NQ, D), (B, H, K, D), (B, H, K, D), (B, H, NQ, D), (B, NQ, K))

@@ -16,6 +16,7 @@
 """
 import importlib.util
 import os
+import re
 import sys
 import types
 
@@ -125,6 +126,37 @@ def test_mfu_and_bound_use_h100_peaks():
     assert by == "operations" and ms == pytest.approx(0.04342, rel=1e-3)
     ms, by = flops.bound_ms(1e6, 3.35e9)
     assert by == "bytes" and ms == pytest.approx(1.0)
+
+
+# (work, expected bound in ms, bound_by): K1 at the CFG shape [16, 4096, 40],
+# K2 at the eval shape [8, 4096, 40] (one exponential per pair), K3's shape
+BOUND_CASES = {
+    "k1_fwd": ((4 * 16 * 4096**2 * 40, 4 * 16 * 4096 * 40 * 2 + 16 * 4096 * 4, 16 * 4096**2), 0.0688, "exp"),
+    "k2_bwd": ((10 * 8 * 4096**2 * 40, 8 * 8 * 4096 * 40 * 2 + 8 * 4096 * 4, 8 * 4096**2), 0.0543, "operations"),
+    "k3": ((4 * 8 * 256 * 77 * 160, (2 * 8 * 256 * 160 + 2 * 8 * 77 * 160) * 2 + 256 * 77 * 4, 8 * 256 * 77),
+           0.000532, "bytes"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BOUND_CASES))
+def test_bound_counts_exponentials(case):
+    """16 exp2 per SM per clock over 132 SMs at ~1.83 GHz: at head dim 40
+    the forward's exponentials take longer than its products."""
+    assert flops.H100_EXP2_PER_S == 3.9e12
+    (ops, nbytes, exps), want_ms, want_by = BOUND_CASES[case]
+    ms, by = flops.bound_ms(ops, nbytes, exps=exps)
+    assert by == want_by and ms == pytest.approx(want_ms, rel=2e-3)
+
+
+def test_k1_tile_configs_match_the_source():
+    """``K1_TILE_CONFIGS`` and ``K1_MAIN_CONFIG`` name the configurations
+    csrc/flash_self_fwd.cu instantiates, in its index order."""
+    src = open(os.path.join(REPO, "guided_attention_tpu_torch", "csrc", "flash_self_fwd.cu")).read()
+    launches = re.findall(r"launch<(\d+), (\d+), (\d+), \d+, DK>", src)
+    assert tuple((64 * int(cw), int(bk), int(st)) for cw, bk, st in launches) == fa.K1_TILE_CONFIGS
+    assert int(re.search(r"kMainConfig = (\d+);", src).group(1)) == fa.K1_MAIN_CONFIG
+    assert [perf_attn_kernel.k1_tiles_name(c) for c in range(3)] == [
+        "K1 c0 (128,128,3)", "K1 c1 (128,64,3)", "K1 c2 (64,128,2)"]
 
 
 def test_variant_wrappers_take_plain_versions_on_cpu():

@@ -9,7 +9,9 @@ Phases:
   3. hold each kernel against its plain PyTorch version on the card at the
      shapes its path gives it (bf16, forward and gradient): K1-K3 of the
      generation path (K1's logsumexp too, and every K1 tile configuration
-     at a ragged shape), V1 and W1 of the microbench; time kernel, plain
+     at a ragged shape; K2 against its plain version and autograd, at a
+     ragged shape, in every tile configuration, and run twice for bitwise
+     equal gradients), V1 and W1 of the microbench; time kernel, plain
      version and a library yardstick with CUDA events (median of 20
      bursts of 10 calls, taking turns burst by burst; SDPA's backward
      replayed from a CUDA graph, so that the host does not time it);
@@ -72,6 +74,17 @@ MAX_REL, RMS_REL = 2.0**-5, 2.0**-7
 # same bf16 inputs on both sides, summed in another order; the limit is
 # absolute, as K2 uses it (exp(s - lse)): 2^-7 moves P by under 0.8%.
 LSE_TOL = 2.0**-7
+
+
+def check_same(name: str, got, want, results: dict) -> None:
+    """Every tensor of ``got`` bitwise equal to its counterpart in ``want``."""
+    import torch
+
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    results.setdefault("checks", []).append({"name": name, "bitwise_equal": same, "ok": same})
+    log(f"  {name}: bitwise equal {'ok' if same else 'FAIL'}")
+    if not same:
+        raise SystemExit(f"{name}: two runs on the same inputs differ")
 
 
 def check_close(name: str, out, ref, results: dict) -> float:
@@ -173,34 +186,51 @@ def kernel_phase(results: dict) -> list:
         "bf16_p_1": v1[True],
     })
 
-    # ---- K2 backward: eval call [8, 4096, 40], SD2.1 [5, 4096, 64]
+    # ---- K2 backward: SD2.1 [5, 4096, 64], a ragged [3, 1000, 40] (TMA
+    # zero-fill, padded query statistics, the key mask), the eval call
+    # [8, 4096, 40]; against its plain version given the same o and lse,
+    # against autograd through the plain forward, and run twice for the bits
     log("K2 flash_self_bwd")
+    names = ("dq", "dk", "dv")
     k2_row = None
-    for bh, n, d in ((5, 4096, 64), (8, 4096, 40)):
+    for bh, n, d in ((5, 4096, 64), (3, 1000, 40), (8, 4096, 40)):
         q, k, v, do = randn(bh, n, d), randn(bh, n, d), randn(bh, n, d), randn(bh, n, d)
         scale = d**-0.5
         o, lse = fa.flash_self_fwd(q, k, v, scale)
-        dq, dk, dv = fa.flash_self_bwd(q, k, v, o, do, lse, scale)
+        got = fa.flash_self_bwd(q, k, v, o, do, lse, scale)
+        want = fa.flash_self_bwd_plain(q, k, v, o, do, lse, scale)
+        torch.cuda.synchronize()
+        errs = [max_err(a, b) for a, b in zip(got, want)]
+        tols = [check_close(f"K2 {nm} [{bh},{n},{d}]", a, b, results) for nm, a, b in zip(names, got, want)]
+        check_same(f"K2 twice [{bh},{n},{d}]", got, fa.flash_self_bwd(q, k, v, o, do, lse, scale), results)
         qr, kr, vr = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
         out_ref = fa.flash_self_plain(qr, kr, vr, scale)
-        gq, gk, gv = torch.autograd.grad(out_ref, (qr, kr, vr), do, retain_graph=True)
-        torch.cuda.synchronize()
-        errs = [max_err(a, b) for a, b in ((dq, gq), (dk, gk), (dv, gv))]
-        tols = [check_close(f"K2 {nm} [{bh},{n},{d}]", a, b, results)
-                for nm, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), (gq, gk, gv))]
+        grads = torch.autograd.grad(out_ref, (qr, kr, vr), do)
+        for nm, a, b in zip(names, got, grads):
+            check_close(f"K2 {nm} vs autograd [{bh},{n},{d}]", a, b, results)
+        del qr, kr, vr, out_ref, grads
         if d == 40:
-            # one exponential per pair, what the algorithm needs (K2 recomputes P twice)
+            # the microbench's other tile configurations, off the main path
+            for c, cfg in enumerate(fa.K2_TILE_CONFIGS):
+                gc = fa.flash_self_bwd_tiles(q, k, v, o, do, lse, scale, c)
+                torch.cuda.synchronize()
+                for nm, a, b in zip(names, gc, want):
+                    check_close(f"K2 tiles {cfg} {nm} [{bh},{n},{d}]", a, b, results)
+                check_same(f"K2 tiles {cfg} twice [{bh},{n},{d}]", gc,
+                           fa.flash_self_bwd_tiles(q, k, v, o, do, lse, scale, c), results)
+        del want
+        if (bh, n, d) == pak.BWD_SHAPE:
+            # one exponential per pair, what the algorithm needs (K2 computes two)
             b_ms, b_by = bound_ms(pak.bwd_flops(bh, n, d), 8 * bh * n * d * 2 + bh * n * 4, exps=bh * n * n)
             _fwd, sdpa_bwd, _grads = pak.sdpa_graphs(q, k, v, do, scale)
             k2_row = {
                 "name": "flash_self_bwd", "route": "cuda", "path": "main",
                 "source": "guided_attention_tpu_torch/csrc/flash_self_bwd.cu",
                 "replaces": "guided_attention_tpu/ops/flash_attention.py:140",
-                "shape": [bh, n, d], "max_abs_err": max(errs), "tol": min(tols),
+                "shape": [bh, n, d], "max_abs_err": max(errs), "tol": min(tols), "deterministic": True,
                 "bound_ms": b_ms, "bound_by": b_by,
                 **timed(lambda: fa.flash_self_bwd(q, k, v, o, do, lse, scale),
-                        lambda: torch.autograd.grad(out_ref, (qr, kr, vr), do, retain_graph=True),
-                        sdpa_bwd),
+                        lambda: fa.flash_self_bwd_plain(q, k, v, o, do, lse, scale), sdpa_bwd),
             }
     kernels.append(k2_row)
 
@@ -342,10 +372,11 @@ def main() -> int:
     src = ""
     for line in build.build_log.splitlines():
         src = line[3:] if line.startswith("== ") else src
-        # -Xptxas -v: registers, spills; for K1 also which kernel, and ptxas's
-        # warnings and advisories (C75xx: wgmma serialized, warpgroup.arrive injected)
-        k1 = src == "flash_self_fwd.cu" and any(w in line for w in ("entry function", "arning", "C75"))
-        if "registers" in line or "spill" in line or line.startswith("==") or k1:
+        # -Xptxas -v: registers, spills; for K1 and K2 also which kernel, and
+        # ptxas's warnings and advisories (C75xx: wgmma serialized, warpgroup.arrive injected)
+        hopper = src in ("flash_self_fwd.cu", "flash_self_bwd.cu") and any(
+            w in line for w in ("entry function", "arning", "C75"))
+        if "registers" in line or "spill" in line or line.startswith("==") or hopper:
             log("  " + line.strip())
 
     # ---- 3. kernels against their plain versions

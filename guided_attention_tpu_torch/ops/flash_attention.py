@@ -18,13 +18,23 @@ Three kernels, counterparts of the three Pallas kernels of the JAX package's
   shapes are template parameters (``K1_TILE_CONFIGS``); the main path runs
   ``K1_MAIN_CONFIG``, the microbench all of them (``flash_self_fwd_tiles``).
 * K2 ``flash_self_bwd`` (csrc/flash_self_bwd.cu) replaces ``_self_bwd`` /
-  ``_self_bwd_kernel`` (custom VJP ``_flash_bh_bwd``). The TPU kernel
-  carried dK/dV in fp32 across sequential q-block grid steps; CUDA blocks
-  run in no order, so it is three passes: delta = rowsum(dO*O), a key-tile
-  parallel pass that owns dK/dV and loops over every query tile, and a
-  query-tile parallel pass for dQ, both recomputing P from the saved
-  log-sum-exp. No atomics, so results do not change from run to run. Bound:
-  10*N^2*D operations per (b, h) on the tensor cores.
+  ``_self_bwd_kernel`` (custom VJP ``_flash_bh_bwd``). The TPU kernel held
+  one (b, h)'s K and V in VMEM and carried dK/dV in fp32 across sequential
+  q-block grid steps; CUDA blocks run in no order and hold a few tiles, so
+  it is two passes that each own their outputs, recomputing P from K1's
+  saved log-sum-exp: a query-tile pass for dQ that also computes delta =
+  rowsum(dO*O) in its prologue, then a key-tile pass for dK and dV. No
+  atomics and no cross-block sum, so results are bitwise the same from run
+  to run. Bound: 10*N^2*D tensor-core operations per (b, h); the two passes
+  recompute S and dP, and at head_dim 40 the tiles pad to 768 operations
+  per (query, key) pair. Every product runs on `wgmma` (scores from shared
+  memory, gradient products with P and dS from registers) and streamed
+  tiles arrive by TMA into rings of shared-memory stages. Registers bound
+  the schedule: each warpgroup runs a tile's scores, exponentials and
+  gradient products in order, and the two warpgroups of a block overlap
+  one's exponentials with the other's products. Its tile shapes are
+  template parameters (``K2_TILE_CONFIGS``); the main path runs
+  ``K2_MAIN_CONFIG``, the microbench all of them (``flash_self_bwd_tiles``).
 * K3 ``cross_attention_map_fwd`` (csrc/cross_attention_map.cu) replaces
   ``_cross_attention_fwd_impl`` / ``_cross_fwd_kernel``: cross-attention
   over the 77 text keys (masked at the ragged edge, not padded to 128) that
@@ -95,8 +105,9 @@ def _check_head_dim(name: str, d: int) -> None:
 
 
 def flash_self_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    """Plain version of K1 (and, through autograd, of K2) over [BH, N, D]:
-    float32 scores, softmax and product; output in the input dtype."""
+    """Plain version of K1 over [BH, N, D]: float32 scores, softmax and
+    product; output in the input dtype. Autograd through it is the CPU
+    route's backward."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p, v.float()).to(q.dtype)
@@ -155,27 +166,74 @@ def flash_self_fwd_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scal
     return _launch_k1(q, k, v, scale, config)
 
 
-def flash_self_bwd(q, k, v, o, do, lse, scale: float):
-    """Launch K2: returns (dq, dk, dv) in bf16."""
+def flash_self_bwd_plain(q, k, v, o, do, lse, scale: float):
+    """Plain version of K2 with K2's contract: from the forward's output ``o``
+    and natural-log logsumexp ``lse`` [BH, N], delta = rowsum(dO * O) and
+    P = exp(s - lse) in float32; returns (dq, dk, dv) in the input dtype."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale - lse.float()[..., None])
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta) * scale
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# K2's tile configurations, in the order of csrc/flash_self_bwd.cu's
+# configuration index: ((keys per block, queries per tile, stages) of the
+# dK/dV pass, (queries per block, keys per tile, stages) of the dQ pass).
+# The C entry point of the main path runs K2_MAIN_CONFIG, the one measured
+# fastest on the H100.
+K2_TILE_CONFIGS = (((128, 64, 4), (128, 64, 4)), ((128, 64, 2), (128, 64, 2)), ((64, 64, 4), (64, 64, 4)))
+K2_MAIN_CONFIG = 0
+
+
+def _launch_k2(q, k, v, o, do, lse, scale: float, config: Optional[int]):
     from guided_attention_tpu_torch.ops.build import load_library
 
     _check_cuda_inputs("flash_self_bwd", torch.bfloat16, q, k, v, o, do)
     _check_cuda_inputs("flash_self_bwd", torch.float32, lse)
+    if q.dim() != 3:
+        raise ValueError(f"flash_self_bwd: expected [BH, N, D], got {tuple(q.shape)}")
     bh, n, d = q.shape
     if not (q.shape == k.shape == v.shape == o.shape == do.shape and lse.shape == (bh, n)):
         raise ValueError("flash_self_bwd: mismatched shapes")
     _check_head_dim("flash_self_bwd", d)
+    if config is not None and (config not in range(len(K2_TILE_CONFIGS)) or (d != 40 and config != K2_MAIN_CONFIG)):
+        raise ValueError(f"flash_self_bwd: no tile configuration {config} at head_dim {d}")
+    if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
+        raise ValueError("flash_self_bwd: TMA and 16-byte row loads need 16-byte aligned q, k, v, o and do")
     delta = torch.empty((bh, n), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = load_library()
-    err = lib.ga_flash_self_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        bh, n, d, float(scale), _stream(q),
-    )
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, n, d, float(scale))
+    if config is None:
+        err = lib.ga_flash_self_bwd(*args, _stream(q))
+    else:
+        err = lib.ga_flash_self_bwd_config(*args, config, _stream(q))
     _check("flash_self_bwd", err)
     LAUNCHES["flash_self_bwd"] += 1
     return dq, dk, dv
+
+
+def flash_self_bwd(q, k, v, o, do, lse, scale: float):
+    """K2 on [BH, N, D]: (dq, dk, dv) in the input dtype from K1's output
+    and logsumexp. Launches the kernel on CUDA bf16 tensors; runs
+    ``flash_self_bwd_plain`` on CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_self_bwd_plain(q, k, v, o, do, lse, scale)
+    return _launch_k2(q, k, v, o, do, lse, scale, None)
+
+
+def flash_self_bwd_tiles(q, k, v, o, do, lse, scale: float, config: int):
+    """K2 with the tile configuration ``K2_TILE_CONFIGS[config]`` (any of
+    them at head_dim 40, only ``K2_MAIN_CONFIG`` at 64): the microbench's
+    sweep. Same contract as ``flash_self_bwd``."""
+    if q.device.type == "cpu":
+        return flash_self_bwd_plain(q, k, v, o, do, lse, scale)
+    return _launch_k2(q, k, v, o, do, lse, scale, config)
 
 
 class _FlashSelf(torch.autograd.Function):

@@ -27,10 +27,12 @@ of the 50 MB); TF/s of the function's own operations (4*BH*N^2*D forward,
 least time the card could take (``runtime/flops.bound_ms``, which counts
 the one exponential per (query, key) pair beside the products and bytes);
 and the numerics: max |out - ref| / max |ref| against the row's plain PyTorch
-version (over dq, dk and dv for a backward) and, for V1 and W1, against
-K1's and K2's output. The TPU script's block sweeps become K1's tile rows;
-the other kernels' tiles are compile-time constants, one row each. A failed
-build or launch raises: nothing falls back.
+version (over dq, dk and dv for a backward; K2's is ``flash_self_bwd_plain``
+from the same output and logsumexp, and K2 is also held against autograd
+through the plain forward) and, for the tile rows, V1 and W1, against K1's
+and K2's output. The TPU script's block sweeps become K1's and K2's tile
+rows; the other kernels' tiles are compile-time constants, one row each. A
+failed build or launch raises: nothing falls back.
 
 Prints a table, the card's name and power limit, and one JSON line; writes
 the same JSON to ``chiprun_out/perf_attn_kernel.json``.
@@ -72,6 +74,13 @@ def k1_tiles_name(config: int) -> str:
     """Row name of K1's tile configuration ``config``: its (queries, keys,
     stages) per block."""
     return f"K1 c{config} ({','.join(map(str, fa.K1_TILE_CONFIGS[config]))})"
+
+
+def k2_tiles_name(config: int) -> str:
+    """Row name of K2's tile configuration ``config``: (keys per block,
+    queries per tile, stages) of its dK/dV pass | (queries per block, keys
+    per tile, stages) of its dQ pass."""
+    return "K2 c{} ({}|{})".format(config, *(",".join(map(str, t)) for t in fa.K2_TILE_CONFIGS[config]))
 
 
 def sdpa_graphs(q, k, v, do, scale: float, warmup: int = 3):
@@ -167,18 +176,25 @@ def backward_rows(bh: int, n: int, d: int, reps: int, seed: int = 1) -> List[dic
         return max(rel_err(a, b) for a, b in zip(got, want))
 
     o, lse = fa.flash_self_fwd(q, k, v, scale)
+    plain = fa.flash_self_bwd_plain(q, k, v, o, do, lse, scale)
     g_k2 = fa.flash_self_bwd(q, k, v, o, do, lse, scale)
     g_w1 = av.flash_self_bwd_w1(q, k, v, do, scale)
     sdpa_fwd, sdpa_bwd, g_sdpa = sdpa_graphs(q, k, v, do, scale)
     errs = {
-        "K2": {"err_vs_plain": worst(g_k2, ref)},
+        "K2": {"err_vs_plain": worst(g_k2, plain), "err_vs_autograd": worst(g_k2, ref)},
         "K1+K2": {"err_vs_plain": worst(g_k2, ref)},
         "W1": {"err_vs_plain": worst(g_w1, av.flash_self_bwd_w1_plain(q, k, v, do, scale)),
                "err_vs_k2": worst(g_w1, g_k2)},
         "SDPA bwd (graph)": {"err_vs_plain": worst(g_sdpa, ref)},
         "SDPA fwd+bwd (graph)": {"err_vs_plain": worst(g_sdpa, ref)},
     }
-    del ref, g_k2, g_w1
+    fns = {"K2": lambda: fa.flash_self_bwd(q, k, v, o, do, lse, scale)}
+    for c in range(len(fa.K2_TILE_CONFIGS)):
+        name = k2_tiles_name(c)
+        g = fa.flash_self_bwd_tiles(q, k, v, o, do, lse, scale, c)
+        errs[name] = {"err_vs_plain": worst(g, plain), "err_vs_k2": worst(g, g_k2)}
+        fns[name] = lambda c=c: fa.flash_self_bwd_tiles(q, k, v, o, do, lse, scale, c)
+    del ref, plain, g_k2, g_w1
 
     def k1k2():
         o, lse = fa.flash_self_fwd(q, k, v, scale)
@@ -188,17 +204,18 @@ def backward_rows(bh: int, n: int, d: int, reps: int, seed: int = 1) -> List[dic
         sdpa_fwd()
         sdpa_bwd()
 
-    fns = {
-        "K2": lambda: fa.flash_self_bwd(q, k, v, o, do, lse, scale),
+    fns.update({
         "K1+K2": k1k2,
         "W1": lambda: av.flash_self_bwd_w1(q, k, v, do, scale),
         "SDPA bwd (graph)": sdpa_bwd,
         "SDPA fwd+bwd (graph)": sdpa_fwd_bwd,
-    }
+    })
     ms = alternating_ms(fns, reps)
     elems = bh * n * d
+    k2_bytes = 5 * elems * 2 + bh * n * 4 + 3 * elems * 2  # q, k, v, o, do, lse in; dq, dk, dv out
     nbytes = {
-        "K2": 5 * elems * 2 + bh * n * 4 + 3 * elems * 2,  # q, k, v, o, do, lse in; dq, dk, dv out
+        "K2": k2_bytes,
+        **{k2_tiles_name(c): k2_bytes for c in range(len(fa.K2_TILE_CONFIGS))},
         "K1+K2": 4 * elems * 2 + 3 * elems * 2,  # q, k, v, do in; dq, dk, dv out
         "W1": 4 * elems * 2 + elems * 2 + 2 * elems * 4,  # dk, dv in fp32
         "SDPA bwd (graph)": 5 * elems * 2 + bh * n * 4 + 3 * elems * 2,

@@ -25,7 +25,7 @@ OUT = os.path.join("chiprun_out", "profile.json")
 # first matching substring (lower-cased kernel name) names the family
 FAMILIES = (
     ("k1_flash_self_fwd", ("flash_self_fwd",)),
-    ("k2_flash_self_bwd", ("dkdv_kernel", "dq_kernel", "delta_kernel")),
+    ("k2_flash_self_bwd", ("dkdv_kernel", "dq_kernel")),
     ("k3_cross_map", ("cross_map_kernel",)),
     ("conv", ("conv", "implicit", "winograd", "fprop", "dgrad", "wgrad", "nhwc", "nchw")),
     ("gemm", ("gemm", "gemv", "cutlass", "xmma", "sm90", "matmul")),

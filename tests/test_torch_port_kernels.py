@@ -2,7 +2,8 @@
 
 The plain versions of K1/K2/K3 (what the wrappers run on CPU tensors, and
 what the kernels are held to on the card) against the Pallas kernels run
-through the Pallas interpreter, forward and gradients, in float32; and the
+through the Pallas interpreter, forward and gradients, in float32 (K2's
+with its own contract: from K1's output and logsumexp); and the
 port's ``attention()`` against the JAX package's for every route.
 Tolerances: float32 with sums in another order, 2e-5 absolute on O(1)
 values (5e-5 for gradients through the softmax).
@@ -80,6 +81,44 @@ def test_flash_self_fwd_plain_lse_matches_jax(d):
     assert lse.dtype == torch.float32 and tuple(lse.shape) == (BH, N)
     np.testing.assert_allclose(lse.numpy(), np.asarray(want), atol=1e-5, rtol=0)
     np.testing.assert_allclose(out.numpy(), tfa.flash_self_plain(tq, tk, tv, scale).numpy(), atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("d", [40, 64])
+def test_flash_self_bwd_plain_matches_pallas(d):
+    """K2's plain version, with K2's contract (delta from O and dO, P from
+    K1's logsumexp, both from ``flash_self_fwd_plain``), against ``jax.vjp``
+    of the JAX package's ``flash_attention``, whose Pallas backward runs in
+    interpret mode; the same float32 inputs. 5e-5 absolute: float32 on both
+    sides, the sums taken in another order, P from a row max there and from
+    the logsumexp here."""
+    B, H, N = 1, 2, 256
+    scale = d**-0.5
+    q, k, v, do = _arrays(200 + d, *[(B, H, N, d)] * 4)
+    _, vjp = jax.vjp(lambda q, k, v: jfa.flash_attention(q, k, v, block_q=128, block_q_bwd=64), q, k, v)
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.from_numpy(a.reshape(B * H, N, d)) for a in (q, k, v, do))
+    o, lse = tfa.flash_self_fwd_plain(tq, tk, tv, scale)
+    got = tfa.flash_self_bwd_plain(tq, tk, tv, o, tdo, lse, scale)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == (B * H, N, d)
+        np.testing.assert_allclose(g.numpy().reshape(B, H, N, d), np.asarray(w), atol=5e-5, rtol=0)
+
+
+def test_k2_wrappers_take_plain_version_on_cpu():
+    """On CPU tensors K2's wrappers (the main path's and the tile sweep's)
+    run ``flash_self_bwd_plain`` and count no launch; bf16 in, as on the
+    card."""
+    BH, N, D = 2, 128, 40
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16) for a in _arrays(9, *[(BH, N, D)] * 4))
+    o, lse = tfa.flash_self_fwd_plain(q, k, v, D**-0.5)
+    want = tfa.flash_self_bwd_plain(q, k, v, o, do, lse, D**-0.5)
+    tfa.reset_launches()
+    for got in (tfa.flash_self_bwd(q, k, v, o, do, lse, D**-0.5),
+                tfa.flash_self_bwd_tiles(q, k, v, o, do, lse, D**-0.5, 1)):
+        for a, b in zip(got, want):
+            assert a.dtype == torch.bfloat16
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert tfa.LAUNCHES["flash_self_bwd"] == 0
 
 
 def test_cross_map_plain_matches_pallas():

@@ -159,6 +159,21 @@ def test_k1_tile_configs_match_the_source():
         "K1 c0 (128,128,3)", "K1 c1 (128,64,3)", "K1 c2 (64,128,2)"]
 
 
+def test_k2_tile_configs_match_the_source():
+    """``K2_TILE_CONFIGS`` and ``K2_MAIN_CONFIG`` name the configurations
+    csrc/flash_self_bwd.cu instantiates, in its index order: (keys per
+    block, queries per tile, stages) of the dK/dV pass, (queries per block,
+    keys per tile, stages) of the dQ pass."""
+    src = open(os.path.join(REPO, "guided_attention_tpu_torch", "csrc", "flash_self_bwd.cu")).read()
+    tiles = r"Tiles<(\d+), (\d+), (\d+), \d+>"
+    launches = re.findall(rf"launch<{tiles}, {tiles}, DK>", src)
+    assert tuple(((64 * int(a), int(b), int(c)), (64 * int(e), int(f), int(g)))
+                 for a, b, c, e, f, g in launches) == fa.K2_TILE_CONFIGS
+    assert int(re.search(r"kMainConfig = (\d+);", src).group(1)) == fa.K2_MAIN_CONFIG
+    assert [perf_attn_kernel.k2_tiles_name(c) for c in range(3)] == [
+        "K2 c0 (128,64,4|128,64,4)", "K2 c1 (128,64,2|128,64,2)", "K2 c2 (64,64,4|64,64,4)"]
+
+
 def test_variant_wrappers_take_plain_versions_on_cpu():
     """On CPU tensors the V1 and W1 wrappers run their plain versions and
     count no launch; bf16 in, as on the card."""

@@ -11,7 +11,10 @@ Phases:
      generation path (K1's logsumexp too, and every K1 tile configuration
      at a ragged shape; K2 against its plain version and autograd, at a
      ragged shape, in every tile configuration, and run twice for bitwise
-     equal gradients), V1 and W1 of the microbench; time kernel, plain
+     equal gradients), V1 and W1 of the microbench (at head dim 40 and 64
+     and a ragged shape, in every tile configuration; V1 without bf16_p
+     to a tighter rms limit that a bf16-rounded P fails; W1 run twice for
+     bitwise equal gradients); time kernel, plain
      version and a library yardstick with CUDA events (median of 20
      bursts of 10 calls, taking turns burst by burst; SDPA's backward
      replayed from a CUDA graph, so that the host does not time it);
@@ -42,6 +45,8 @@ import time
 MAIN_PATH_KERNELS = ("flash_self_fwd", "flash_self_bwd", "cross_attention_map_fwd")
 MICROBENCH_KERNELS = ("flash_self_fwd_v1", "flash_self_bwd_w1")
 MICROBENCH_REPS = 5
+# the sources on csrc/hopper.cuh, whose ptxas lines are printed in full
+HOPPER_SOURCES = ("flash_self_fwd.cu", "flash_self_bwd.cu", "flash_self_fwd_v1.cu", "flash_self_bwd_w1.cu")
 
 
 def log(*a):
@@ -74,6 +79,13 @@ MAX_REL, RMS_REL = 2.0**-5, 2.0**-7
 # same bf16 inputs on both sides, summed in another order; the limit is
 # absolute, as K2 uses it (exp(s - lse)): 2^-7 moves P by under 0.8%.
 LSE_TOL = 2.0**-7
+# V1 with bf16_p=0 carries P~ as a bf16 hi + lo pair (about 16 significant
+# bits), so it differs from the fp32-P plain version by its output rounding
+# alone, about 2^-12.5 relative rms. A kernel that drops the lo product
+# rounds P~ to bf16, as bf16_p=1 does, and reads about 2^-9: a tighter rms
+# limit between the two holds the lo half. Each V1 shape also checks that
+# the bf16_p=1 kernel, held against the bf16_p=0 plain version, fails it.
+V1_EXACT_P_RMS = 2.0**-10
 
 
 def check_same(name: str, got, want, results: dict) -> None:
@@ -87,18 +99,22 @@ def check_same(name: str, got, want, results: dict) -> None:
         raise SystemExit(f"{name}: two runs on the same inputs differ")
 
 
-def check_close(name: str, out, ref, results: dict) -> float:
-    """Hold ``out`` against ``ref`` by the two limits above; returns the
-    absolute tolerance it applied to the max error."""
+def rms_rel_err(out, ref) -> float:
     import torch
 
     diff = out.float() - ref.float()
+    return float(torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(ref.float()))
+
+
+def check_close(name: str, out, ref, results: dict, rms_tol: float = RMS_REL) -> float:
+    """Hold ``out`` against ``ref`` by the two limits above (or a tighter
+    ``rms_tol``); returns the absolute tolerance it applied to the max error."""
     ref_max = float(ref.float().abs().max())
-    rms_rel = float(torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(ref.float()))
-    if rms_rel > RMS_REL:
-        raise SystemExit(f"{name}: relative rms error {rms_rel} above {RMS_REL}")
+    rms_rel = rms_rel_err(out, ref)
+    if rms_rel > rms_tol:
+        raise SystemExit(f"{name}: relative rms error {rms_rel} above {rms_tol}")
     tol = MAX_REL * ref_max
-    check(name, float(diff.abs().max()), tol, results, ref_max=ref_max, rms_rel=rms_rel, rms_tol=RMS_REL)
+    check(name, max_err(out, ref), tol, results, ref_max=ref_max, rms_rel=rms_rel, rms_tol=rms_tol)
     return tol
 
 
@@ -159,21 +175,48 @@ def kernel_phase(results: dict) -> list:
                 lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)),
     })
 
-    # ---- V1 forward (microbench): both forward shapes, bf16_p 0 and 1
+    # ---- V1 forward (microbench): the CFG and eval shapes, SD2.1 D=64 and a
+    # ragged [3, 1000, 40], bf16_p 0 and 1, main entry and every tile
+    # configuration; the row is the CFG call's, with D=64's times beside it
     log("V1 flash_self_fwd_v1")
-    v1 = {}
-    for bh, n, d in pak.FWD_SHAPES[::-1]:
+    v1, v1_d64 = {}, {}
+    for bh, n, d in ((5, 4096, 64), (3, 1000, 40)) + pak.FWD_SHAPES[::-1]:
         q, k, v = randn(bh, n, d), randn(bh, n, d), randn(bh, n, d)
         scale = d**-0.5
+        q4, k4, v4 = (t.reshape(1, bh, n, d) for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)  # noqa: E731
         for bp in (False, True):
             o = av.flash_self_fwd_v1(q, k, v, scale, bp)
             ref = av.flash_self_fwd_v1_plain(q, k, v, scale, bp)
             torch.cuda.synchronize()
-            tol = check_close(f"V1 out bf16_p={int(bp)} [{bh},{n},{d}]", o, ref, results)
-            v1[bp] = {"max_abs_err": max_err(o, ref), "tol": tol}
-    # the row and the timings are at the CFG call's shape, FWD_SHAPES[0]
-    q4, k4, v4 = (t.reshape(1, bh, n, d) for t in (q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)  # noqa: E731
+            rms_tol = RMS_REL if bp else V1_EXACT_P_RMS
+            tol = check_close(f"V1 out bf16_p={int(bp)} [{bh},{n},{d}]", o, ref, results, rms_tol)
+            for c, cfg in enumerate(av.V1_CONFIGS):
+                oc = av.flash_self_fwd_v1_config(q, k, v, scale, bp, c)
+                torch.cuda.synchronize()
+                check_close(f"V1 tiles {cfg} bf16_p={int(bp)} [{bh},{n},{d}]", oc, ref, results, rms_tol)
+            if (bh, n, d) == pak.FWD_SHAPES[0]:
+                v1[bp] = {"max_abs_err": max_err(o, ref), "tol": tol}
+            if not bp:
+                ref_exact_p = ref
+            else:
+                # the bf16_p=1 kernel stands in for one without the lo product
+                name = f"V1 bf16_p=1 against bf16_p=0 plain [{bh},{n},{d}]"
+                rms_rel = rms_rel_err(o, ref_exact_p)
+                told_apart = rms_rel > V1_EXACT_P_RMS
+                results.setdefault("checks", []).append({"name": name, "rms_rel": rms_rel, "rms_tol": V1_EXACT_P_RMS,
+                                          "above_tol": told_apart, "ok": told_apart})
+                log(f"  {name}: rms_rel={rms_rel:.3e} above rms_tol={V1_EXACT_P_RMS:.3e} "
+                    f"{'ok' if told_apart else 'FAIL'}")
+                if not told_apart:
+                    raise SystemExit(f"{name}: the bf16_p=0 rms limit does not tell bf16 P apart")
+                del ref_exact_p
+            del ref
+            if d == 64:
+                v1_d64[f"bf16_p_{int(bp)}"] = timed(lambda: av.flash_self_fwd_v1(q, k, v, scale, bp),
+                                                    lambda: av.flash_self_fwd_v1_plain(q, k, v, scale, bp), sdpa)
+                v1_d64["shape"] = [bh, n, d]
+    # the last shape above is the CFG call's, FWD_SHAPES[0]
     for bp in (False, True):
         v1[bp].update(timed(lambda: av.flash_self_fwd_v1(q, k, v, scale, bp),
                             lambda: av.flash_self_fwd_v1_plain(q, k, v, scale, bp), sdpa))
@@ -182,8 +225,10 @@ def kernel_phase(results: dict) -> list:
         "name": "flash_self_fwd_v1", "route": "cuda", "path": "microbench",
         "source": "guided_attention_tpu_torch/csrc/flash_self_fwd_v1.cu",
         "replaces": "scripts/perf_attn_kernel.py:90",
+        "design": "wgmma, TMA ring, S/P/O in registers, all-ones m64n8 denominator product",
+        "config": av.V1_CONFIGS[av.V1_MAIN_CONFIG[0]],
         "shape": [bh, n, d], "bf16_p": 0, **v1[False], "bound_ms": b_ms, "bound_by": b_by,
-        "bf16_p_1": v1[True],
+        "bf16_p_1": {"config": av.V1_CONFIGS[av.V1_MAIN_CONFIG[1]], **v1[True]}, "d64": v1_d64,
     })
 
     # ---- K2 backward: SD2.1 [5, 4096, 64], a ragged [3, 1000, 40] (TMA
@@ -234,22 +279,41 @@ def kernel_phase(results: dict) -> list:
             }
     kernels.append(k2_row)
 
-    # ---- W1 backward (microbench): [8, 4096, 40]; dq bf16, dk and dv fp32
+    # ---- W1 backward (microbench): SD2.1 D=64, a ragged [3, 1000, 40] and
+    # the eval call [8, 4096, 40]; dq bf16, dk and dv fp32; main entry and
+    # every tile configuration, each run twice for the bits (no atomics);
+    # the row is the eval call's, with D=64's times beside it
     log("W1 flash_self_bwd_w1")
-    bh, n, d = pak.BWD_SHAPE
-    q, k, v, do = randn(bh, n, d), randn(bh, n, d), randn(bh, n, d), randn(bh, n, d)
-    scale = d**-0.5
-    got = av.flash_self_bwd_w1(q, k, v, do, scale)
-    want = av.flash_self_bwd_w1_plain(q, k, v, do, scale)
-    torch.cuda.synchronize()
-    errs = [max_err(a, b) for a, b in zip(got, want)]
-    tols = [check_close(f"W1 {nm} [{bh},{n},{d}]", a, b, results) for nm, a, b in zip(("dq", "dk", "dv"), got, want)]
-    del got, want
-    sdpa_fwd, sdpa_bwd, _grads = pak.sdpa_graphs(q, k, v, do, scale)
+    w1_d64 = {}
+    for bh, n, d in ((5, 4096, 64), (3, 1000, 40), pak.BWD_SHAPE):
+        q, k, v, do = randn(bh, n, d), randn(bh, n, d), randn(bh, n, d), randn(bh, n, d)
+        scale = d**-0.5
+        got = av.flash_self_bwd_w1(q, k, v, do, scale)
+        want = av.flash_self_bwd_w1_plain(q, k, v, do, scale)
+        torch.cuda.synchronize()
+        errs = [max_err(a, b) for a, b in zip(got, want)]
+        tols = [check_close(f"W1 {nm} [{bh},{n},{d}]", a, b, results) for nm, a, b in zip(names, got, want)]
+        check_same(f"W1 twice [{bh},{n},{d}]", got, av.flash_self_bwd_w1(q, k, v, do, scale), results)
+        for c, cfg in enumerate(av.W1_CONFIGS):
+            gc = av.flash_self_bwd_w1_config(q, k, v, do, scale, c)
+            torch.cuda.synchronize()
+            for nm, a, b in zip(names, gc, want):
+                check_close(f"W1 tiles {cfg} {nm} [{bh},{n},{d}]", a, b, results)
+            check_same(f"W1 tiles {cfg} twice [{bh},{n},{d}]", gc,
+                       av.flash_self_bwd_w1_config(q, k, v, do, scale, c), results)
+        del got, want
+        if n % 64:
+            continue  # the ragged shape is checked, not timed
+        sdpa_fwd, sdpa_bwd, _grads = pak.sdpa_graphs(q, k, v, do, scale)
 
-    def sdpa_fwd_bwd():
-        sdpa_fwd()
-        sdpa_bwd()
+        def sdpa_fwd_bwd():
+            sdpa_fwd()
+            sdpa_bwd()
+
+        w1_times = timed(lambda: av.flash_self_bwd_w1(q, k, v, do, scale),
+                         lambda: av.flash_self_bwd_w1_plain(q, k, v, do, scale), sdpa_fwd_bwd)
+        if d == 64:
+            w1_d64 = {"shape": [bh, n, d], **w1_times}
 
     elems = bh * n * d
     b_ms, b_by = bound_ms(pak.bwd_flops(bh, n, d), 5 * elems * 2 + 2 * elems * 4, exps=bh * n * n)
@@ -257,11 +321,13 @@ def kernel_phase(results: dict) -> list:
         "name": "flash_self_bwd_w1", "route": "cuda", "path": "microbench",
         "source": "guided_attention_tpu_torch/csrc/flash_self_bwd_w1.cu",
         "replaces": "scripts/perf_attn_kernel.py:139",
+        "design": "statistics-and-dQ pass over query tiles, then dK/dV pass over key tiles; wgmma, TMA rings, "
+                  "no atomics",
+        "config": av.W1_CONFIGS[av.W1_MAIN_CONFIG], "deterministic": True,
         "shape": [bh, n, d], "max_abs_err": max(errs), "tol": min(tols),
         "bound_ms": b_ms, "bound_by": b_by,
         # library: SDPA forward and backward (CUDA graphs), W1's function from the same inputs
-        **timed(lambda: av.flash_self_bwd_w1(q, k, v, do, scale),
-                lambda: av.flash_self_bwd_w1_plain(q, k, v, do, scale), sdpa_fwd_bwd),
+        **w1_times, "d64": w1_d64,
     })
 
     # ---- K3 cross-attention with map: q [1,8,256,160], k/v [1,8,77,160]
@@ -372,10 +438,9 @@ def main() -> int:
     src = ""
     for line in build.build_log.splitlines():
         src = line[3:] if line.startswith("== ") else src
-        # -Xptxas -v: registers, spills; for K1 and K2 also which kernel, and
+        # -Xptxas -v: registers, spills; for K1, K2, V1 and W1 also which kernel, and
         # ptxas's warnings and advisories (C75xx: wgmma serialized, warpgroup.arrive injected)
-        hopper = src in ("flash_self_fwd.cu", "flash_self_bwd.cu") and any(
-            w in line for w in ("entry function", "arning", "C75"))
+        hopper = src in HOPPER_SOURCES and any(w in line for w in ("entry function", "arning", "C75"))
         if "registers" in line or "spill" in line or line.startswith("==") or hopper:
             log("  " + line.strip())
 

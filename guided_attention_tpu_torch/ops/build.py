@@ -52,8 +52,12 @@ SIGNATURES = {
     "ga_cross_attention_map_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # q, k, v, o, bh, n, d, scale, bf16_p, stream
     "ga_flash_self_fwd_v1": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
-    # q, k, v, do, dq, dk, dv, bh, n, d, scale, stream
-    "ga_flash_self_bwd_w1": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # the same, then the tile configuration, stream
+    "ga_flash_self_fwd_v1_config": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
+    # q, k, v, do, stats scratch, dq, dk, dv, bh, n, d, scale, stream
+    "ga_flash_self_bwd_w1": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # the same, then the tile configuration, stream
+    "ga_flash_self_bwd_w1_config": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -9,10 +9,14 @@ Rows, each a kernel of ``ops/`` or PyTorch's fused attention as yardstick:
     K1 ``flash_self_fwd`` (the main path's tile configuration) and one row
     per tile configuration of K1 (``K1 c<i> (BQ,BK,stages)``,
     ``flash_self_fwd_tiles``); V1 ``flash_self_fwd_v1`` with bf16_p 0 and 1
-    (the ones-column denominator); SDPA (``scaled_dot_product_attention``);
+    (the ones-column denominator) and one row per tile configuration and
+    bf16_p (``V1 c<i> (BQ,BK,stages) bf16_p=<p>``,
+    ``flash_self_fwd_v1_config``); SDPA (``scaled_dot_product_attention``);
   backward at [8, 4096, 40] (the eval call):
     K2 ``flash_self_bwd`` given K1's output and logsumexp; K1+K2; W1
-    ``flash_self_bwd_w1`` (no saved output or logsumexp); SDPA's backward
+    ``flash_self_bwd_w1`` (no saved output or logsumexp) and one row per
+    tile configuration (``W1 c<i> (dK/dV pass|statistics-and-dQ pass)``,
+    ``flash_self_bwd_w1_config``); SDPA's backward
     given its forward, and SDPA forward+backward (W1's function from the
     same inputs), both replayed from CUDA graphs (``sdpa_graphs``): through
     autograd the host takes longer per call than the card, so only a graph
@@ -25,13 +29,16 @@ inputs warm in L2 (the largest input set, q/k/v at [16, 4096, 40], is 15.7 MB
 of the 50 MB); TF/s of the function's own operations (4*BH*N^2*D forward,
 10*BH*N^2*D backward) and their share of the H100's 989 TF/s bf16 peak; the
 least time the card could take (``runtime/flops.bound_ms``, which counts
-the one exponential per (query, key) pair beside the products and bytes);
-and the numerics: max |out - ref| / max |ref| against the row's plain PyTorch
+the one exponential per (query, key) pair beside the products and bytes,
+from ``io_bytes``: each input read once, each output written once; W1's
+rows also give the bytes it adds across blocks, ``reduction_bytes``, and
+the bytes of its row-statistics scratch, ``scratch_bytes``); and the
+numerics: max |out - ref| / max |ref| against the row's plain PyTorch
 version (over dq, dk and dv for a backward; K2's is ``flash_self_bwd_plain``
 from the same output and logsumexp, and K2 is also held against autograd
 through the plain forward) and, for the tile rows, V1 and W1, against K1's
-and K2's output. The TPU script's block sweeps become K1's and K2's tile
-rows; the other kernels' tiles are compile-time constants, one row each. A
+and K2's output. The TPU script's block sweeps become the tile rows of K1,
+K2, V1 and W1. A
 failed build or launch raises: nothing falls back.
 
 Prints a table, the card's name and power limit, and one JSON line; writes
@@ -42,7 +49,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -83,6 +90,29 @@ def k2_tiles_name(config: int) -> str:
     return "K2 c{} ({}|{})".format(config, *(",".join(map(str, t)) for t in fa.K2_TILE_CONFIGS[config]))
 
 
+def v1_tiles_name(config: int, bf16_p: int) -> str:
+    """Row name of V1's tile configuration ``config``: its (queries, keys,
+    stages) per block, and bf16_p."""
+    return f"V1 c{config} ({','.join(map(str, av.V1_CONFIGS[config]))}) bf16_p={bf16_p}"
+
+
+def w1_tiles_name(config: int) -> str:
+    """Row name of W1's tile configuration ``config``: (keys per block,
+    queries per tile, stages) of its dK/dV pass | (queries per block, keys
+    per tile, stages) of its statistics-and-dQ pass."""
+    return "W1 c{} ({}|{})".format(config, *(",".join(map(str, t)) for t in av.W1_CONFIGS[config]))
+
+
+def w1_extra_bytes(bh: int, n: int, config: int = av.W1_MAIN_CONFIG) -> Dict[str, float]:
+    """W1's traffic beyond its inputs and outputs: no reductions across
+    blocks (each output element has one writer), and its fp32 row statistics
+    (-lse2 and delta * scale, [2, BH, N]) written once by the first pass and
+    read by each key block of the second."""
+    keys_per_block = av.W1_CONFIGS[config][0][0]
+    stats = 2 * bh * n * 4
+    return {"reduction_bytes": 0.0, "scratch_bytes": float(stats + stats * -(-n // keys_per_block))}
+
+
 def sdpa_graphs(q, k, v, do, scale: float, warmup: int = 3):
     """SDPA's forward and its backward through autograd on [BH, N, D]
     tensors, each captured in a CUDA graph on one side stream (the backward
@@ -117,7 +147,8 @@ def _inputs(count: int, shape, seed: int):
     return [torch.randn(shape, generator=g, device="cuda", dtype=torch.float32).to(torch.bfloat16) for _ in range(count)]
 
 
-def _rows(shape, flops: float, nbytes: Dict[str, float], ms: Dict[str, float], errs: Dict[str, dict]) -> List[dict]:
+def _rows(shape, flops: float, nbytes: Dict[str, float], ms: Dict[str, float], errs: Dict[str, dict],
+          extra: Optional[Dict[str, dict]] = None) -> List[dict]:
     bh, n, _d = shape
     rows = []
     for name, t in ms.items():
@@ -125,7 +156,8 @@ def _rows(shape, flops: float, nbytes: Dict[str, float], ms: Dict[str, float], e
         rows.append({
             "variant": name, "shape": list(shape), "ms": t, "tflops": flops / t / 1e9,
             "pct_peak": 100.0 * flops / (t * 1e-3) / H100_BF16_PEAK_FLOPS,
-            "bound_ms": b_ms, "bound_by": b_by, **errs[name],
+            "bound_ms": b_ms, "bound_by": b_by, "io_bytes": nbytes[name], **errs[name],
+            **(extra or {}).get(name, {}),
         })
     return rows
 
@@ -151,12 +183,16 @@ def forward_rows(bh: int, n: int, d: int, reps: int, seed: int = 0) -> List[dict
             fns[name] = lambda c=c: fa.flash_self_fwd_tiles(q, k, v, scale, c)
         for bp in (0, 1):
             name = f"V1 bf16_p={bp}"
+            plain = av.flash_self_fwd_v1_plain(q, k, v, scale, bool(bp))
             o = av.flash_self_fwd_v1(q, k, v, scale, bool(bp))
-            errs[name] = {
-                "err_vs_plain": rel_err(o, av.flash_self_fwd_v1_plain(q, k, v, scale, bool(bp))),
-                "err_vs_k1": rel_err(o, o_k1),
-            }
+            errs[name] = {"err_vs_plain": rel_err(o, plain), "err_vs_k1": rel_err(o, o_k1)}
             fns[name] = lambda bp=bp: av.flash_self_fwd_v1(q, k, v, scale, bool(bp))
+            for c in range(len(av.V1_CONFIGS)):
+                name = v1_tiles_name(c, bp)
+                oc = av.flash_self_fwd_v1_config(q, k, v, scale, bool(bp), c)
+                errs[name] = {"err_vs_plain": rel_err(oc, plain), "err_vs_k1": rel_err(oc, o_k1)}
+                fns[name] = lambda bp=bp, c=c: av.flash_self_fwd_v1_config(q, k, v, scale, bool(bp), c)
+            del plain
         fns["SDPA"] = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
         del ref
         ms = alternating_ms(fns, reps)
@@ -179,12 +215,12 @@ def backward_rows(bh: int, n: int, d: int, reps: int, seed: int = 1) -> List[dic
     plain = fa.flash_self_bwd_plain(q, k, v, o, do, lse, scale)
     g_k2 = fa.flash_self_bwd(q, k, v, o, do, lse, scale)
     g_w1 = av.flash_self_bwd_w1(q, k, v, do, scale)
+    w1_plain = av.flash_self_bwd_w1_plain(q, k, v, do, scale)
     sdpa_fwd, sdpa_bwd, g_sdpa = sdpa_graphs(q, k, v, do, scale)
     errs = {
         "K2": {"err_vs_plain": worst(g_k2, plain), "err_vs_autograd": worst(g_k2, ref)},
         "K1+K2": {"err_vs_plain": worst(g_k2, ref)},
-        "W1": {"err_vs_plain": worst(g_w1, av.flash_self_bwd_w1_plain(q, k, v, do, scale)),
-               "err_vs_k2": worst(g_w1, g_k2)},
+        "W1": {"err_vs_plain": worst(g_w1, w1_plain), "err_vs_k2": worst(g_w1, g_k2)},
         "SDPA bwd (graph)": {"err_vs_plain": worst(g_sdpa, ref)},
         "SDPA fwd+bwd (graph)": {"err_vs_plain": worst(g_sdpa, ref)},
     }
@@ -194,7 +230,13 @@ def backward_rows(bh: int, n: int, d: int, reps: int, seed: int = 1) -> List[dic
         g = fa.flash_self_bwd_tiles(q, k, v, o, do, lse, scale, c)
         errs[name] = {"err_vs_plain": worst(g, plain), "err_vs_k2": worst(g, g_k2)}
         fns[name] = lambda c=c: fa.flash_self_bwd_tiles(q, k, v, o, do, lse, scale, c)
-    del ref, plain, g_k2, g_w1
+    w1_rows = {}
+    for c in range(len(av.W1_CONFIGS)):
+        name = w1_tiles_name(c)
+        g = av.flash_self_bwd_w1_config(q, k, v, do, scale, c)
+        errs[name] = {"err_vs_plain": worst(g, w1_plain), "err_vs_k2": worst(g, g_k2)}
+        w1_rows[name] = lambda c=c: av.flash_self_bwd_w1_config(q, k, v, do, scale, c)
+    del ref, plain, g_k2, g_w1, w1_plain
 
     def k1k2():
         o, lse = fa.flash_self_fwd(q, k, v, scale)
@@ -207,6 +249,7 @@ def backward_rows(bh: int, n: int, d: int, reps: int, seed: int = 1) -> List[dic
     fns.update({
         "K1+K2": k1k2,
         "W1": lambda: av.flash_self_bwd_w1(q, k, v, do, scale),
+        **w1_rows,
         "SDPA bwd (graph)": sdpa_bwd,
         "SDPA fwd+bwd (graph)": sdpa_fwd_bwd,
     })
@@ -218,10 +261,12 @@ def backward_rows(bh: int, n: int, d: int, reps: int, seed: int = 1) -> List[dic
         **{k2_tiles_name(c): k2_bytes for c in range(len(fa.K2_TILE_CONFIGS))},
         "K1+K2": 4 * elems * 2 + 3 * elems * 2,  # q, k, v, do in; dq, dk, dv out
         "W1": 4 * elems * 2 + elems * 2 + 2 * elems * 4,  # dk, dv in fp32
+        **{w1_tiles_name(c): 4 * elems * 2 + elems * 2 + 2 * elems * 4 for c in range(len(av.W1_CONFIGS))},
         "SDPA bwd (graph)": 5 * elems * 2 + bh * n * 4 + 3 * elems * 2,
         "SDPA fwd+bwd (graph)": 4 * elems * 2 + 3 * elems * 2,
     }
-    return _rows((bh, n, d), bwd_flops(bh, n, d), nbytes, ms, errs)
+    extra = {"W1": w1_extra_bytes(bh, n), **{w1_tiles_name(c): w1_extra_bytes(bh, n, c) for c in range(len(av.W1_CONFIGS))}}
+    return _rows((bh, n, d), bwd_flops(bh, n, d), nbytes, ms, errs, extra)
 
 
 def run(reps: int = 30) -> dict:
@@ -234,11 +279,11 @@ def run(reps: int = 30) -> dict:
 
 
 def report(result: dict) -> None:
-    print(f"{'variant':20s} {'shape':16s} {'ms':>8s} {'TF/s':>7s} {'%peak':>6s} {'bound ms':>9s} "
+    print(f"{'variant':28s} {'shape':16s} {'ms':>8s} {'TF/s':>7s} {'%peak':>6s} {'bound ms':>9s} "
           f"{'err/plain':>10s} {'err/K1|K2':>10s}", flush=True)
     for r in result["rows"]:
         vs = r.get("err_vs_k1", r.get("err_vs_k2"))
-        print(f"{r['variant']:20s} {str(r['shape']):16s} {r['ms']:8.3f} {r['tflops']:7.1f} {r['pct_peak']:6.2f} "
+        print(f"{r['variant']:28s} {str(r['shape']):16s} {r['ms']:8.3f} {r['tflops']:7.1f} {r['pct_peak']:6.2f} "
               f"{r['bound_ms']:9.4f} {r['err_vs_plain']:10.2e} {'' if vs is None else f'{vs:10.2e}'}", flush=True)
     print(result["card"], flush=True)
 

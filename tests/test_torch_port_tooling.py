@@ -3,16 +3,19 @@
 * The plain versions of V1 and W1 (what their wrappers run on CPU tensors,
   and what the kernels are held to on the card) against ``fwd_v1`` and
   ``bwd_w1`` of ``scripts/perf_attn_kernel.py``, run by the Pallas TPU
-  interpreter, on the same bf16 inputs at [2, 256, 40]. Both sides round
-  their output (and W1's P and dS) to bf16 at places that differ: the Pallas
-  kernels take exp of a max-shifted fp32 score on the whole row, the plain
-  versions do too but through other fp32 roundings, so a product input can
-  land one bf16 ulp apart. Measured here, relative to max|ref|: V1 out
-  4.2e-4 (bf16_p 0) and 2.1e-4 (bf16_p 1), W1 dq 1.5e-3, dk 3.4e-5, dv
-  3.6e-5. The limits, 2^-6 for the bf16 outputs and 2^-8 for the fp32 dk
-  and dv, leave 10x or more.
+  interpreter, on the same bf16 inputs at [2, 256, D] for both head dims
+  the kernels take, D = 40 and 64. Both sides round their output (and W1's
+  P and dS) to bf16 at places that differ: the Pallas kernels take exp of a
+  max-shifted fp32 score on the whole row, the plain versions do too but
+  through other fp32 roundings, so a product input can land one bf16 ulp
+  apart. Measured here, relative to max|ref|, at D = 40 (64): V1 out 4.2e-4
+  (2.8e-3) with bf16_p 0 and 2.1e-4 (1.4e-3) with bf16_p 1, W1 dq 1.5e-3
+  (3.8e-4), dk 3.4e-5 (8.3e-6), dv 3.6e-5 (5.7e-5). The limits, 2^-6 for
+  the bf16 outputs and 2^-8 for the fp32 dk and dv, leave 5x or more.
 * ``runtime/flops.py`` against the JAX package's for every preset.
-* The wrappers' CPU contract: plain version for CPU tensors, no launch.
+* The wrappers' CPU contract: plain version for CPU tensors, no launch;
+  and the tile tables the wrappers and the microbench name against the
+  CUDA sources.
 """
 import importlib.util
 import os
@@ -38,6 +41,7 @@ from guided_attention_tpu_torch.runtime import flops
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPE = (2, 256, 40)
 SCALE = 40**-0.5
+HEAD_DIMS = (40, 64)  # the kernels' head dims: SD1.5, SD2.1
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -67,11 +71,11 @@ def tpu_bench():
         os.environ["JAX_COMPILATION_CACHE_DIR"] = env
 
 
-def _bf16_inputs(seed: int, count: int):
+def _bf16_inputs(seed: int, count: int, shape=SHAPE):
     """``count`` float32 arrays from a numpy seed, and the same values as
     bf16 on both sides (both round to nearest even)."""
     rng = np.random.default_rng(seed)
-    arrays = [rng.standard_normal(SHAPE).astype(np.float32) for _ in range(count)]
+    arrays = [rng.standard_normal(shape).astype(np.float32) for _ in range(count)]
     return [jnp.asarray(a, jnp.bfloat16) for a in arrays], [torch.from_numpy(a).to(torch.bfloat16) for a in arrays]
 
 
@@ -80,24 +84,28 @@ def _rel(got: torch.Tensor, want) -> float:
     return float(np.abs(got.float().numpy() - want).max() / np.abs(want).max())
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("bf16_p", [False, True])
-def test_v1_plain_matches_fwd_v1(tpu_bench, bf16_p):
-    (jq, jk, jv), (q, k, v) = _bf16_inputs(3, 3)
+def test_v1_plain_matches_fwd_v1(tpu_bench, bf16_p, d):
+    shape, scale = (2, 256, d), d**-0.5
+    (jq, jk, jv), (q, k, v) = _bf16_inputs(3, 3, shape)
     with pltpu.force_tpu_interpret_mode():
-        want = tpu_bench.fwd_v1(jq, jk, jv, SCALE, 128, bf16_p)
-    got = av.flash_self_fwd_v1_plain(q, k, v, SCALE, bf16_p)
-    assert got.dtype == torch.bfloat16 and tuple(got.shape) == SHAPE
+        want = tpu_bench.fwd_v1(jq, jk, jv, scale, 128, bf16_p)
+    got = av.flash_self_fwd_v1_plain(q, k, v, scale, bf16_p)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == shape
     assert _rel(got, want) <= 2.0**-6
 
 
-def test_w1_plain_matches_bwd_w1(tpu_bench):
-    (jq, jk, jv, jdo), (q, k, v, do) = _bf16_inputs(4, 4)
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_w1_plain_matches_bwd_w1(tpu_bench, d):
+    shape, scale = (2, 256, d), d**-0.5
+    (jq, jk, jv, jdo), (q, k, v, do) = _bf16_inputs(4, 4, shape)
     with pltpu.force_tpu_interpret_mode():
-        want = tpu_bench.bwd_w1(jq, jk, jv, jdo, SCALE, 128)
-    got = av.flash_self_bwd_w1_plain(q, k, v, do, SCALE)
+        want = tpu_bench.bwd_w1(jq, jk, jv, jdo, scale, 128)
+    got = av.flash_self_bwd_w1_plain(q, k, v, do, scale)
     assert [t.dtype for t in got] == [torch.bfloat16, torch.float32, torch.float32]
     for name, g, w, tol in zip(("dq", "dk", "dv"), got, want, (2.0**-6, 2.0**-8, 2.0**-8)):
-        assert tuple(g.shape) == SHAPE, name
+        assert tuple(g.shape) == shape, name
         assert _rel(g, w) <= tol, name
 
 
@@ -174,21 +182,57 @@ def test_k2_tile_configs_match_the_source():
         "K2 c0 (128,64,4|128,64,4)", "K2 c1 (128,64,2|128,64,2)", "K2 c2 (64,64,4|64,64,4)"]
 
 
+def test_v1_tile_configs_match_the_source():
+    """``V1_CONFIGS`` and ``V1_MAIN_CONFIG`` name the configurations
+    csrc/flash_self_fwd_v1.cu instantiates, in its index order."""
+    src = open(os.path.join(REPO, "guided_attention_tpu_torch", "csrc", "flash_self_fwd_v1.cu")).read()
+    launches = re.findall(r"launch<(\d+), (\d+), (\d+), \d+, DK, BF16_P>", src)
+    assert tuple((64 * int(cw), int(bk), int(st)) for cw, bk, st in launches) == av.V1_CONFIGS
+    assert tuple(map(int, re.search(r"kMainConfig\[2\] = \{(\d+), (\d+)\};", src).groups())) == av.V1_MAIN_CONFIG
+    assert [perf_attn_kernel.v1_tiles_name(c, bp) for c in range(3) for bp in (0, 1)] == [
+        "V1 c0 (128,128,3) bf16_p=0", "V1 c0 (128,128,3) bf16_p=1", "V1 c1 (128,64,3) bf16_p=0",
+        "V1 c1 (128,64,3) bf16_p=1", "V1 c2 (64,128,2) bf16_p=0", "V1 c2 (64,128,2) bf16_p=1"]
+
+
+def test_w1_tile_configs_match_the_source():
+    """``W1_CONFIGS`` and ``W1_MAIN_CONFIG`` name the configurations
+    csrc/flash_self_bwd_w1.cu instantiates, in its index order: (keys per
+    block, queries per tile, stages) of the dK/dV pass, (queries per block,
+    keys per tile, stages) of the statistics-and-dQ pass."""
+    src = open(os.path.join(REPO, "guided_attention_tpu_torch", "csrc", "flash_self_bwd_w1.cu")).read()
+    tiles = r"Tiles<(\d+), (\d+), (\d+), \d+>"
+    launches = re.findall(rf"launch<{tiles}, {tiles}, DK>", src)
+    assert tuple(((64 * int(a), int(b), int(c)), (64 * int(e), int(f), int(g)))
+                 for a, b, c, e, f, g in launches) == av.W1_CONFIGS
+    assert int(re.search(r"kMainConfig = (\d+);", src).group(1)) == av.W1_MAIN_CONFIG
+    assert [perf_attn_kernel.w1_tiles_name(c) for c in range(3)] == [
+        "W1 c0 (128,64,4|128,64,4)", "W1 c1 (128,64,2|128,64,2)", "W1 c2 (64,64,4|64,64,4)"]
+
+
 def test_variant_wrappers_take_plain_versions_on_cpu():
-    """On CPU tensors the V1 and W1 wrappers run their plain versions and
-    count no launch; bf16 in, as on the card."""
-    _, (q, k, v, do) = _bf16_inputs(5, 4)
+    """On CPU tensors the V1 and W1 wrappers, main and tile-sweep entries,
+    run their plain versions and count no launch; bf16 in, as on the card,
+    at both head dims."""
     fa.reset_launches()
-    for bp in (False, True):
-        torch.testing.assert_close(av.flash_self_fwd_v1(q, k, v, SCALE, bp),
-                                   av.flash_self_fwd_v1_plain(q, k, v, SCALE, bp), rtol=0, atol=0)
-    for a, b in zip(av.flash_self_bwd_w1(q, k, v, do, SCALE), av.flash_self_bwd_w1_plain(q, k, v, do, SCALE)):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for d in HEAD_DIMS:
+        scale = d**-0.5
+        _, (q, k, v, do) = _bf16_inputs(5, 4, (2, 64, d))
+        for bp in (False, True):
+            want = av.flash_self_fwd_v1_plain(q, k, v, scale, bp)
+            torch.testing.assert_close(av.flash_self_fwd_v1(q, k, v, scale, bp), want, rtol=0, atol=0)
+            for c in range(len(av.V1_CONFIGS)):
+                torch.testing.assert_close(av.flash_self_fwd_v1_config(q, k, v, scale, bp, c), want, rtol=0, atol=0)
+        want = av.flash_self_bwd_w1_plain(q, k, v, do, scale)
+        for a, b in zip(av.flash_self_bwd_w1(q, k, v, do, scale), want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        for c in range(len(av.W1_CONFIGS)):
+            for a, b in zip(av.flash_self_bwd_w1_config(q, k, v, do, scale, c), want):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert all(n == 0 for n in fa.LAUNCHES.values())
 
 
 def test_variant_wrappers_refuse_other_shapes():
-    x = torch.zeros(2, 64, 64, dtype=torch.bfloat16)
+    x = torch.zeros(2, 64, 48, dtype=torch.bfloat16)  # a head dim no kernel is built for
     with pytest.raises(ValueError, match="head_dim"):
         av.flash_self_fwd_v1(x, x, x, 0.125)
     with pytest.raises(ValueError, match="head_dim"):

@@ -11,13 +11,16 @@ Phases:
      generation path (K1's logsumexp too, and every K1 tile configuration
      at a ragged shape; K2 against its plain version and autograd, at a
      ragged shape, in every tile configuration, and run twice for bitwise
-     equal gradients), V1 and W1 of the microbench (at head dim 40 and 64
+     equal gradients; K3 at SD1.5's and SD2.1's cross shapes and a ragged
+     one, 77 and 33 keys, every tile configuration, run twice for bitwise
+     equal out and map), V1 and W1 of the microbench (at head dim 40 and 64
      and a ragged shape, in every tile configuration; V1 without bf16_p
      to a tighter rms limit that a bf16-rounded P fails; W1 run twice for
      bitwise equal gradients); time kernel, plain
      version and a library yardstick with CUDA events (median of 20
      bursts of 10 calls, taking turns burst by burst; SDPA's backward
-     replayed from a CUDA graph, so that the host does not time it);
+     replayed from a CUDA graph, so that the host does not time it; K3 and
+     its plain version also as CUDA-graph bursts, ``graph_ms``);
   4. one guidance eval (loss and latent gradient) of full-width SD1.5 with
      the kernels against the same eval through the plain attention path;
   5. the main path: guided 512x512 SD1.5 generation, 50 DDIM steps, the
@@ -46,7 +49,8 @@ MAIN_PATH_KERNELS = ("flash_self_fwd", "flash_self_bwd", "cross_attention_map_fw
 MICROBENCH_KERNELS = ("flash_self_fwd_v1", "flash_self_bwd_w1")
 MICROBENCH_REPS = 5
 # the sources on csrc/hopper.cuh, whose ptxas lines are printed in full
-HOPPER_SOURCES = ("flash_self_fwd.cu", "flash_self_bwd.cu", "flash_self_fwd_v1.cu", "flash_self_bwd_w1.cu")
+HOPPER_SOURCES = ("flash_self_fwd.cu", "flash_self_bwd.cu", "flash_self_fwd_v1.cu", "flash_self_bwd_w1.cu",
+                  "cross_attention_map.cu")
 
 
 def log(*a):
@@ -127,7 +131,7 @@ def kernel_phase(results: dict) -> list:
     from guided_attention_tpu_torch.ops import attention_variants as av
     from guided_attention_tpu_torch.ops import flash_attention as fa
     from guided_attention_tpu_torch.runtime.flops import bound_ms
-    from guided_attention_tpu_torch.runtime.timing import alternating_ms
+    from guided_attention_tpu_torch.runtime.timing import alternating_ms, graph_alternating_ms
 
     g = torch.Generator(device="cuda").manual_seed(0)
 
@@ -330,17 +334,36 @@ def kernel_phase(results: dict) -> list:
         **w1_times, "d64": w1_d64,
     })
 
-    # ---- K3 cross-attention with map: q [1,8,256,160], k/v [1,8,77,160]
+    # ---- K3 cross-attention with map: SD1.5's captured 16x16 layers
+    # [1|2, 8, 256, 160] (the eval and a batch of two), SD2.1's [1, 20, 256,
+    # 64] (clusters of 7 blocks of 3 or 2 heads) and a ragged [1, 5, 100, 40]
+    # (head dim padded to 48, a cluster of 5), each with 77 and 33 keys; main
+    # entry and every tile configuration, each run twice for the bits (no
+    # atomics). The row is the eval's [1, 8, 256, 160] with 77 keys.
     log("K3 cross_attention_map_fwd")
-    b, h, nq, nk, d = 1, 8, 256, 77, 160
-    q, k, v = randn(b, h, nq, d), randn(b, h, nk, d), randn(b, h, nk, d)
-    scale = d**-0.5
-    o, pmap = fa.cross_attention_map_fwd(q, k, v, scale)
-    o_ref, m_ref = fa.cross_attention_map_plain(q, k, v, scale)
-    torch.cuda.synchronize()
-    e_out, e_map = max_err(o, o_ref), max_err(pmap, m_ref)
-    k3_tol = check_close("K3 out", o, o_ref, results)
-    check("K3 map", e_map, 1e-5, results)  # fp32 map, fp32 math on both sides
+    k3_shapes = ((1, 8, 256, 160), (2, 8, 256, 160), (1, 20, 256, 64), (1, 5, 100, 40))
+    k3_d64 = {}
+    for (b, h, nq, d), nk in ((shape, nk) for shape in k3_shapes[::-1] for nk in (33, 77)):
+        q, k, v = randn(b, h, nq, d), randn(b, h, nk, d), randn(b, h, nk, d)
+        scale = d**-0.5
+        o_ref, m_ref = fa.cross_attention_map_plain(q, k, v, scale)
+        runs = [("", lambda: fa.cross_attention_map_fwd(q, k, v, scale))]
+        runs += [(f" tiles {cfg}", lambda c=c: fa.cross_attention_map_tiles(q, k, v, scale, c))
+                 for c, cfg in enumerate(fa.K3_TILE_CONFIGS)]
+        for label, run in runs:
+            o, pmap = run()
+            torch.cuda.synchronize()
+            tag = f"K3{label} [{b},{h},{nq},{d}] keys {nk}"
+            k3_tol = check_close(f"{tag} out", o, o_ref, results)
+            e_map = max_err(pmap, m_ref)
+            check(f"{tag} map", e_map, 1e-5, results)  # fp32 map from fp32 scores on both sides
+            check_same(f"{tag} twice", (o, pmap), run(), results)
+            if not label:
+                k3_main = {"max_abs_err": max_err(o, o_ref), "tol": k3_tol, "map_max_abs_err": e_map, "map_tol": 1e-5}
+        if (b, h, nq, d, nk) == (1, 20, 256, 64, 77):
+            k3_d64 = {"shape": [b, h, nq, nk, d], **graph_alternating_ms(
+                {"graph_ms": runs[0][1], "plain_graph_ms": lambda: fa.cross_attention_map_plain(q, k, v, scale)})}
+    # the last case above: [1, 8, 256, 160], 77 keys
     # gradient through the autograd Function (PyTorch-ops backward)
     qa, ka, va = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
     qb, kb, vb = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
@@ -353,16 +376,21 @@ def kernel_phase(results: dict) -> list:
         check_close(f"K3 {nm}", a_, b_, results)
     flops = 4.0 * b * h * nq * nk * d
     nbytes = (2 * b * h * nq * d + 2 * b * h * nk * d) * 2 + b * nq * nk * 4
-    b_ms, b_by = bound_ms(flops, nbytes)
+    b_ms, b_by = bound_ms(flops, nbytes, exps=b * h * nq * nk)
+    kernel, plain = (lambda: fa.cross_attention_map_fwd(q, k, v, scale)), (lambda: fa.cross_attention_map_plain(q, k, v, scale))
+    # K3 runs in microseconds, faster than the host queues it: an event
+    # burst times the host's launch path; a CUDA-graph burst the card
+    graphs = graph_alternating_ms({"graph_ms": kernel, "plain_graph_ms": plain})
     kernels.append({
         "name": "cross_attention_map_fwd", "route": "cuda", "path": "main",
         "source": "guided_attention_tpu_torch/csrc/cross_attention_map.cu",
         "replaces": "guided_attention_tpu/ops/flash_attention.py:241",
-        "shape": [b, h, nq, nk, d], "max_abs_err": e_out, "tol": k3_tol,
-        "map_max_abs_err": e_map, "map_tol": 1e-5,
+        "design": "mma.sync m16n8k16, a block per (head group, 16 queries), 4 warps; TMA boxes; head mean summed "
+                  "across a cluster through distributed shared memory, no atomics",
+        "config": fa.K3_TILE_CONFIGS[fa.K3_MAIN_CONFIG], "deterministic": True,
+        "shape": [b, h, nq, nk, d], **k3_main,
         "bound_ms": b_ms, "bound_by": b_by,
-        **timed(lambda: fa.cross_attention_map_fwd(q, k, v, scale),
-                lambda: fa.cross_attention_map_plain(q, k, v, scale)),
+        **timed(kernel, plain), **graphs, "d64": k3_d64,
     })
     return kernels
 

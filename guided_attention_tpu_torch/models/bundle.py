@@ -1,22 +1,25 @@
-"""StableDiffusion model bundle: UNet, text encoder, VAE decoder, tokenizer.
+"""StableDiffusion model bundle: UNet, text encoder, VAE, tokenizer.
 
-``StableDiffusion.create(model, dtype, device, seed)`` builds random-init
-weights at the preset's full width, from a seed, with flax's default
-initializers (see ``models/layers.py``). Loading a diffusers checkpoint
-waits until such files are in the repository; ``load_jax_params`` fills the
-modules from the JAX package's parameter trees (tests use it to give both
-packages the same weights).
+``StableDiffusion.create(model, dtype, device, seed, checkpoint_dir)``
+builds random-init weights at the preset's full width, from a seed, with
+flax's default initializers (see ``models/layers.py``), or, given a
+diffusers checkpoint directory, that checkpoint's weights
+(``models/convert.load_component_params``; the JAX package's native
+msgpack format is not read yet). ``load_jax_params`` fills the modules from
+the JAX package's parameter trees (tests use it to give both packages the
+same weights).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+import os
+from typing import Any, Dict, Optional
 
 import torch
 
 from guided_attention_tpu_torch.models.clip import CLIPTextModel
 from guided_attention_tpu_torch.models.configs import StableDiffusionConfig, get_config
-from guided_attention_tpu_torch.models.convert import params_from_jax
+from guided_attention_tpu_torch.models.convert import load_component_params, params_from_jax
 from guided_attention_tpu_torch.models.layers import cast_, init_flax_like_
 from guided_attention_tpu_torch.models.tokenizer import load_tokenizer, pad_ids
 from guided_attention_tpu_torch.models.unet import UNet2DCondition
@@ -51,12 +54,17 @@ class StableDiffusion:
         dtype: torch.dtype = torch.bfloat16,
         device: Any = "cuda",
         seed: int = 0,
+        checkpoint_dir: Optional[str] = None,
     ) -> "StableDiffusion":
-        """Random-init bundle of a preset ("sd15", "sd21", "micro")."""
-        return cls.from_config(get_config(model, dtype), device, seed)
+        """Bundle of a preset ("sd15", "sd21", "micro"): random init from
+        ``seed``, or the weights of a diffusers ``checkpoint_dir`` (its
+        ``unet``, ``text_encoder`` and ``vae`` subfolders, and its
+        ``tokenizer`` subfolder where there is one)."""
+        return cls.from_config(get_config(model, dtype), device, seed, checkpoint_dir)
 
     @classmethod
-    def from_config(cls, cfg: StableDiffusionConfig, device: Any = "cuda", seed: int = 0) -> "StableDiffusion":
+    def from_config(cls, cfg: StableDiffusionConfig, device: Any = "cuda", seed: int = 0,
+                    checkpoint_dir: Optional[str] = None) -> "StableDiffusion":
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         with dev:
@@ -69,9 +77,15 @@ class StableDiffusion:
         cast_(unet, cfg.unet.dtype, cfg.unet.norm_dtype)
         cast_(clip, cfg.clip.dtype)
         cast_(vae, cfg.vae.dtype)
+        tokenizer_dir = None
+        if checkpoint_dir is not None:
+            for name, module in (("unet", unet), ("text_encoder", clip), ("vae", vae)):
+                module.load_state_dict(load_component_params(checkpoint_dir, name, module))
+            if os.path.isdir(os.path.join(checkpoint_dir, "tokenizer")):
+                tokenizer_dir = checkpoint_dir
         for m in (unet, clip, vae):
             m.eval()
-        return cls(cfg, unet, clip, vae, load_tokenizer(None), dev)
+        return cls(cfg, unet, clip, vae, load_tokenizer(tokenizer_dir), dev)
 
     def load_jax_params(self, params: Dict[str, Any]) -> None:
         """Fill the modules from the JAX package's ``params`` tree

@@ -48,8 +48,8 @@ SIGNATURES = {
     "ga_flash_self_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     # the same, then the tile configuration, stream
     "ga_flash_self_bwd_config": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
-    # q, k, v, o, map, b, h, nq, nk, d, scale, stream
-    "ga_cross_attention_map_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, o, map, b, h, nq, nk, d, scale, tile configuration, heads per block, stream
+    "ga_cross_attention_map_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
     # q, k, v, o, bh, n, d, scale, bf16_p, stream
     "ga_flash_self_fwd_v1": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # the same, then the tile configuration, stream

@@ -37,15 +37,23 @@ Three kernels, counterparts of the three Pallas kernels of the JAX package's
   ``K2_MAIN_CONFIG``, the microbench all of them (``flash_self_bwd_tiles``).
 * K3 ``cross_attention_map_fwd`` (csrc/cross_attention_map.cu) replaces
   ``_cross_attention_fwd_impl`` / ``_cross_fwd_kernel``: cross-attention
-  over the 77 text keys (masked at the ragged edge, not padded to 128) that
-  also returns the head-mean probability map [B, Nq, K] in fp32. One block
-  owns a tile of queries of one batch row and loops over the heads, so the
-  map accumulates in shared memory and is written once, with no cross-block
-  sum: the TPU's innermost head grid axis. Bound: under a microsecond of
-  work at the main path's shapes, so at best launch latency bounds it; this
-  first version is bound by the serial per-key warp sums of its one warp per
-  query row. Its backward is PyTorch ops, as ``_cross_with_map_bwd`` is
-  plain jnp in the JAX package.
+  over the 77 text keys that also returns the head-mean probability map
+  [B, Nq, K] in fp32. The TPU kernel summed the map over an innermost
+  sequential head grid axis; here the heads are split over the blocks of a
+  thread-block cluster (at most 8 blocks, so 20 heads go 3 or 2 to a
+  block) and the map is summed across the cluster through distributed
+  shared memory, in a fixed order, with no atomics: out and map are bitwise
+  the same from run to run. Bound: under a microsecond of work at the main
+  path's shapes (q [1, 8, 256, 160]), so latency bounds it: the launch, the
+  loads and the chain of instructions each warp runs per head. Both
+  products run on the tensor cores (``mma.sync`` m16n8k16; keys padded to
+  16 and masked), four warps to each 16 query rows (splitting the keys of
+  Q K^T and the softmax, the columns of P V), Q, K and V arrive as TMA
+  boxes, and P is rounded to bf16 only for P V, as the TPU kernel does; the
+  main shape runs 128 blocks. Its tiles are ``K3_TILE_CONFIGS``;
+  ``cross_map_geometry`` gives the grid, cluster and heads per block. Its
+  backward is PyTorch ops, as ``_cross_with_map_bwd`` is plain jnp in the
+  JAX package.
 
 Every wrapper takes its plain version only for tensors on the CPU; for a
 CUDA tensor it launches its kernel or raises. The kernels take bfloat16
@@ -285,27 +293,71 @@ def cross_attention_map_plain(q, k, v, scale: float) -> Tuple[torch.Tensor, torc
     return out, p.mean(dim=1)
 
 
-def cross_attention_map_fwd(q, k, v, scale: float):
-    """Launch K3 on bf16 [B,H,Nq,D] / [B,H,K,D]: returns (out, map f32)."""
+# K3's tile configurations, (query rows per block, heads per block at least),
+# in the order of csrc/cross_attention_map.cu's configuration index; the
+# main path runs K3_MAIN_CONFIG.
+K3_TILE_CONFIGS = ((16, 1), (32, 1), (64, 1), (16, 2))
+K3_MAIN_CONFIG = 0
+K3_MAX_CLUSTER = 8  # the portable thread-block cluster size
+K3_MAX_KEYS, K3_MAX_HEAD_DIM = 128, 256
+
+
+def cross_map_geometry(b: int, h: int, nq: int, nk: int, d: int, config: int = K3_MAIN_CONFIG) -> dict:
+    """K3's launch for q [b, h, nq, d] and k/v [b, h, nk, d] in tile
+    configuration ``config``: a block per (head group, query tile, batch
+    row), the head groups of one query tile forming one cluster.
+
+    Returns ``grid`` (groups, query tiles, b), ``cluster`` (blocks per
+    cluster = head groups), ``heads_per_block`` (the last group may hold
+    fewer) and ``blocks``. Raises on shapes the kernel does not take."""
+    if d % 8 or not 8 <= d <= K3_MAX_HEAD_DIM:
+        raise ValueError(f"cross_attention_map_fwd: head_dim must be a multiple of 8 in [8, 256], got {d}")
+    if not 1 <= nk <= K3_MAX_KEYS:
+        raise ValueError(f"cross_attention_map_fwd: needs 1 <= keys <= {K3_MAX_KEYS}, got {nk}")
+    if config not in range(len(K3_TILE_CONFIGS)):
+        raise ValueError(f"cross_attention_map_fwd: no tile configuration {config}")
+    rows, min_heads = K3_TILE_CONFIGS[config]
+    heads_per_block = max(min_heads, -(-h // K3_MAX_CLUSTER))
+    groups = -(-h // heads_per_block)
+    grid = (groups, -(-nq // rows), b)
+    return {"grid": grid, "cluster": groups, "heads_per_block": heads_per_block, "blocks": grid[0] * grid[1] * grid[2]}
+
+
+def _launch_k3(q, k, v, scale: float, config: int):
     from guided_attention_tpu_torch.ops.build import load_library
 
     _check_cuda_inputs("cross_attention_map_fwd", torch.bfloat16, q, k, v)
+    if q.dim() != 4:
+        raise ValueError(f"cross_attention_map_fwd: expected q [B,H,Nq,D], got {tuple(q.shape)}")
     b, h, nq, d = q.shape
     nk = k.shape[2]
     if k.shape != (b, h, nk, d) or v.shape != k.shape:
         raise ValueError(f"cross_attention_map_fwd: shapes {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
-    if d % 8 or d > 256 or not 1 <= nk <= 128:
-        raise ValueError(f"cross_attention_map_fwd: needs head_dim % 8 == 0, <= 256 and 1 <= keys <= 128, got {d}, {nk}")
+    geo = cross_map_geometry(b, h, nq, nk, d, config)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("cross_attention_map_fwd: TMA needs 16-byte aligned q, k and v")
     o = torch.empty_like(q)
     pmap = torch.empty((b, nq, nk), dtype=torch.float32, device=q.device)
     lib = load_library()
     err = lib.ga_cross_attention_map_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), pmap.data_ptr(),
-        b, h, nq, nk, d, float(scale), _stream(q),
+        b, h, nq, nk, d, float(scale), config, geo["heads_per_block"], _stream(q),
     )
     _check("cross_attention_map_fwd", err)
     LAUNCHES["cross_attention_map_fwd"] += 1
     return o, pmap
+
+
+def cross_attention_map_fwd(q, k, v, scale: float):
+    """Launch K3 on bf16 [B,H,Nq,D] / [B,H,K,D]: returns (out, map f32)."""
+    return _launch_k3(q, k, v, scale, K3_MAIN_CONFIG)
+
+
+def cross_attention_map_tiles(q, k, v, scale: float, config: int):
+    """K3 with the tile configuration ``K3_TILE_CONFIGS[config]``: the
+    microbench's sweep and the chip check's. Same contract as
+    ``cross_attention_map_fwd``."""
+    return _launch_k3(q, k, v, scale, config)
 
 
 def cross_attention_map_bwd(q, k, v, do, dmap, scale: float):

@@ -1,4 +1,4 @@
-"""Microbenchmark of the self-attention kernels and their variants on the card.
+"""Microbenchmark of the attention kernels and their variants on the card.
 
     python -m guided_attention_tpu_torch.perf_attn_kernel [--reps 30]
 
@@ -20,7 +20,15 @@ Rows, each a kernel of ``ops/`` or PyTorch's fused attention as yardstick:
     given its forward, and SDPA forward+backward (W1's function from the
     same inputs), both replayed from CUDA graphs (``sdpa_graphs``): through
     autograd the host takes longer per call than the card, so only a graph
-    times SDPA's device work.
+    times SDPA's device work;
+  cross-attention with the head-mean map at q [1, 8, 256, 160] (SD1.5's
+  captured 16x16 layers) and [1, 20, 256, 64] (SD2.1's), 77 keys:
+    K3 ``cross_attention_map_fwd`` (the main path's tile configuration),
+    one row per tile configuration (``K3 c<i> (rows,heads)``,
+    ``cross_attention_map_tiles``: query rows per block, heads per block at
+    least) and its plain version. K3 runs in microseconds, faster than the
+    host queues it, so its rows' ``ms`` is a CUDA-graph replay of the burst
+    (``graph_alternating_ms``) and ``event_ms`` the eager burst beside it.
 
 For each row: the median over ``--reps`` repetitions of the per-call time
 of a burst of 10 calls between two CUDA events (``runtime/timing.py``), the
@@ -38,7 +46,7 @@ version (over dq, dk and dv for a backward; K2's is ``flash_self_bwd_plain``
 from the same output and logsumexp, and K2 is also held against autograd
 through the plain forward) and, for the tile rows, V1 and W1, against K1's
 and K2's output. The TPU script's block sweeps become the tile rows of K1,
-K2, V1 and W1. A
+K2, V1 and W1, and K3's tiles its rows. A
 failed build or launch raises: nothing falls back.
 
 Prints a table, the card's name and power limit, and one JSON line; writes
@@ -56,10 +64,12 @@ import torch
 from guided_attention_tpu_torch.ops import attention_variants as av
 from guided_attention_tpu_torch.ops import flash_attention as fa
 from guided_attention_tpu_torch.runtime.flops import H100_BF16_PEAK_FLOPS, bound_ms
-from guided_attention_tpu_torch.runtime.timing import alternating_ms, card_name_and_power
+from guided_attention_tpu_torch.runtime.timing import alternating_ms, card_name_and_power, graph_alternating_ms
 
 FWD_SHAPES = ((16, 4096, 40), (8, 4096, 40))
 BWD_SHAPE = (8, 4096, 40)
+# K3: (B, H, Nq, keys, D) of SD1.5's and SD2.1's captured 16x16 cross layers
+CROSS_SHAPES = ((1, 8, 256, 77, 160), (1, 20, 256, 77, 64))
 OUT = os.path.join("chiprun_out", "perf_attn_kernel.json")
 
 
@@ -101,6 +111,12 @@ def w1_tiles_name(config: int) -> str:
     queries per tile, stages) of its dK/dV pass | (queries per block, keys
     per tile, stages) of its statistics-and-dQ pass."""
     return "W1 c{} ({}|{})".format(config, *(",".join(map(str, t)) for t in av.W1_CONFIGS[config]))
+
+
+def k3_tiles_name(config: int) -> str:
+    """Row name of K3's tile configuration ``config``: (query rows per block,
+    heads per block at least)."""
+    return f"K3 c{config} ({','.join(map(str, fa.K3_TILE_CONFIGS[config]))})"
 
 
 def w1_extra_bytes(bh: int, n: int, config: int = av.W1_MAIN_CONFIG) -> Dict[str, float]:
@@ -269,12 +285,46 @@ def backward_rows(bh: int, n: int, d: int, reps: int, seed: int = 1) -> List[dic
     return _rows((bh, n, d), bwd_flops(bh, n, d), nbytes, ms, errs, extra)
 
 
+def cross_rows(b: int, h: int, nq: int, nk: int, d: int, reps: int, seed: int = 2) -> List[dict]:
+    """K3, each of its tile configurations and its plain version at one
+    shape; ``ms`` from CUDA-graph bursts, ``event_ms`` from eager ones."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+               for shape in ((b, h, nq, d), (b, h, nk, d), (b, h, nk, d)))
+    scale = d**-0.5
+    o_ref, m_ref = fa.cross_attention_map_plain(q, k, v, scale)
+
+    def errs(out) -> dict:
+        return {"err_vs_plain": rel_err(out[0], o_ref), "map_max_abs_err": float((out[1] - m_ref).abs().max())}
+
+    main = f"K3 (main: {k3_tiles_name(fa.K3_MAIN_CONFIG)[3:]})"
+    fns = {main: lambda: fa.cross_attention_map_fwd(q, k, v, scale)}
+    err = {main: errs(fns[main]())}
+    for c in range(len(fa.K3_TILE_CONFIGS)):
+        name = k3_tiles_name(c)
+        fns[name] = lambda c=c: fa.cross_attention_map_tiles(q, k, v, scale, c)
+        err[name] = {**errs(fns[name]()), "blocks": fa.cross_map_geometry(b, h, nq, nk, d, c)["blocks"]}
+    fns["K3 plain"] = lambda: fa.cross_attention_map_plain(q, k, v, scale)
+    err["K3 plain"] = {"err_vs_plain": 0.0, "map_max_abs_err": 0.0}
+    ms = graph_alternating_ms(fns, reps)
+    event_ms = alternating_ms(fns, reps)
+    flops = 4.0 * b * h * nq * nk * d
+    nbytes = (2 * b * h * nq * d + 2 * b * h * nk * d) * 2 + b * nq * nk * 4  # q, k, v in, out; fp32 map
+    b_ms, b_by = bound_ms(flops, nbytes, exps=b * h * nq * nk)
+    return [{
+        "variant": name, "shape": [b, h, nq, nk, d], "ms": ms[name], "event_ms": event_ms[name],
+        "tflops": flops / ms[name] / 1e9, "pct_peak": 100.0 * flops / (ms[name] * 1e-3) / H100_BF16_PEAK_FLOPS,
+        "bound_ms": b_ms, "bound_by": b_by, "io_bytes": nbytes, **err[name],
+    } for name in fns]
+
+
 def run(reps: int = 30) -> dict:
     """Every row at the microbench's shapes; needs a CUDA device."""
     if not torch.cuda.is_available():
         raise RuntimeError("perf_attn_kernel: torch.cuda.is_available() is False; this needs an NVIDIA GPU")
     rows = [r for shape in FWD_SHAPES for r in forward_rows(*shape, reps)]
     rows += backward_rows(*BWD_SHAPE, reps)
+    rows += [r for shape in CROSS_SHAPES for r in cross_rows(*shape, reps)]
     return {"card": card_name_and_power(), "device": torch.cuda.get_device_name(0), "reps": reps, "rows": rows}
 
 

@@ -44,9 +44,18 @@ K_TOKENS = 77
 
 def sgd_momentum_update(v, grad, vel, lr):
     """One refinement SGD step (reference pipeline:495-497, 549-553):
-    ``torch.optim.SGD([latents], lr=step_size/2.5, momentum=0.8)``."""
-    vel2 = (0.8 * vel + grad).to(v.dtype)
-    return (v.float() - (lr / 2.5) * vel2.float()).to(v.dtype), vel2
+    ``torch.optim.SGD([latents], lr=step_size/2.5, momentum=0.8)``.
+
+    Rounds as the JAX function does once compiled, with ``lr`` a float32
+    scalar (the pipeline's step size): the weakly typed 0.8 takes the
+    latent's dtype (0.80078125 in bf16) and ``0.8 * vel`` is rounded to it;
+    the returned momentum is the sum rounded once more, while the latent's
+    update reads the float32 sum before that rounding (XLA fuses the two
+    and drops the round trip) and scales it by ``lr * 0.4`` (XLA's form of
+    ``lr / 2.5``)."""
+    m = (torch.tensor(0.8, dtype=v.dtype) * vel).float() + grad.float()
+    step = torch.as_tensor(lr, dtype=torch.float32, device=v.device) * torch.tensor(0.4, dtype=torch.float32)
+    return (v.float() - step * m).to(v.dtype), m.to(v.dtype)
 
 
 def plain_update(v, grad, lr, loss):

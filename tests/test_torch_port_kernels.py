@@ -121,15 +121,30 @@ def test_k2_wrappers_take_plain_version_on_cpu():
     assert tfa.LAUNCHES["flash_self_bwd"] == 0
 
 
-def test_cross_map_plain_matches_pallas():
-    B, H, NQ, K, D = 1, 2, 64, 77, 40
+# (B, H, NQ, K, D): the first is the original case; the others are the chip
+# check's K3 shapes ([1|2, 8, 256, 160] SD1.5, [1, 20, 256, 64] SD2.1,
+# [1, 5, 100, 40]) with fewer queries, 77 and 33 keys, and a ragged NQ
+# (50 queries in blocks of 32)
+CROSS_CASES = [
+    (1, 2, 64, 77, 40),
+    (1, 8, 32, 77, 160),
+    (2, 8, 32, 33, 160),
+    (1, 20, 32, 77, 64),
+    (1, 5, 50, 77, 40),
+    (1, 5, 50, 33, 40),
+]
+
+
+@pytest.mark.parametrize("B,H,NQ,K,D", CROSS_CASES, ids=["x".join(map(str, c)) for c in CROSS_CASES])
+def test_cross_map_plain_matches_pallas(B, H, NQ, K, D):
     q, k, v, w, wm = _arrays(7, (B, H, NQ, D), (B, H, K, D), (B, H, K, D), (B, H, NQ, D), (B, NQ, K))
+    block_q = 64 if NQ % 64 == 0 else 32
 
     def jloss(q, k, v):
-        o, m = jfa.cross_attention_with_map(q, k, v, block_q=64)
+        o, m = jfa.cross_attention_with_map(q, k, v, block_q=block_q)
         return jnp.sum(o * w) + jnp.sum(m * wm)
 
-    jo, jm = jfa.cross_attention_with_map(q, k, v, block_q=64)
+    jo, jm = jfa.cross_attention_with_map(q, k, v, block_q=block_q)
     jg = jax.grad(jloss, (0, 1, 2))(q, k, v)
 
     tq, tk, tv = _t(q, k, v)
@@ -140,6 +155,63 @@ def test_cross_map_plain_matches_pallas():
     np.testing.assert_allclose(tm.detach().numpy(), np.asarray(jm), atol=2e-6, rtol=0)
     for a, b in zip(tg, jg):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=5e-5, rtol=0)
+
+
+def _k3_heads(b, h, nq, nk, d, config):
+    """The heads each head group (cluster rank) of K3's launch covers."""
+    geo = tfa.cross_map_geometry(b, h, nq, nk, d, config)
+    hpb = geo["heads_per_block"]
+    return [list(range(g * hpb, min(h, (g + 1) * hpb))) for g in range(geo["cluster"])]
+
+
+def test_k3_launch_geometry():
+    """At the main shape K3 runs at least 64 blocks; no cluster exceeds the
+    portable 8; every head is covered exactly once, by groups that are never
+    empty, at SD2.1's 20 heads and at 5; shapes the kernel does not take
+    are refused."""
+    main = tfa.cross_map_geometry(1, 8, 256, 77, 160)
+    assert main["blocks"] >= 64
+    assert main["grid"][0] == main["cluster"]
+    for config in range(len(tfa.K3_TILE_CONFIGS)):
+        rows = tfa.K3_TILE_CONFIGS[config][0]
+        for h in range(1, 41):
+            geo = tfa.cross_map_geometry(2, h, 100, 77, 64, config)
+            assert 1 <= geo["cluster"] <= 8
+            assert geo["grid"] == (geo["cluster"], -(-100 // rows), 2)
+        for h in (20, 5):
+            groups = _k3_heads(1, h, 256, 77, 64, config)
+            assert all(groups), groups
+            assert sorted(x for g in groups for x in g) == list(range(h))
+    for bad in ((1, 8, 256, 77, 44), (1, 8, 256, 77, 264), (1, 8, 256, 129, 64), (1, 8, 256, 0, 64)):
+        with pytest.raises(ValueError):
+            tfa.cross_map_geometry(*bad)
+    with pytest.raises(ValueError):
+        tfa.cross_map_geometry(1, 8, 256, 77, 64, len(tfa.K3_TILE_CONFIGS))
+
+
+def test_k3_tile_configs_match_the_source():
+    """K3_TILE_CONFIGS' query rows are the source's, configuration by
+    configuration, and the table's comment there names the same tiles."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tfa.__file__).parent.parent / "csrc" / "cross_attention_map.cu").read_text()
+    rows = [int(r) for _c, r in re.findall(r"case (\d+): return \(int\)ga::launch<(\d+)>", src)]
+    assert rows == [c[0] for c in tfa.K3_TILE_CONFIGS]
+    doc = re.findall(r"// (\d+): (\d+) rows, .*?at least (one|two) heads?", src)
+    assert [(int(r), {"one": 1, "two": 2}[n]) for _c, r, n in doc] == list(tfa.K3_TILE_CONFIGS)
+
+
+def test_k3_tile_wrapper_refuses_cpu_tensors():
+    """Like the main entry (tests/test_torch_port_isolation.py), K3's tile
+    sweep never computes on the CPU: every configuration raises and counts
+    no launch (the autograd route takes the plain version for CPU tensors)."""
+    q, k, v = (torch.zeros(shape, dtype=torch.bfloat16) for shape in ((1, 5, 50, 40), (1, 5, 33, 40), (1, 5, 33, 40)))
+    tfa.reset_launches()
+    for c in range(len(tfa.K3_TILE_CONFIGS)):
+        with pytest.raises(ValueError, match="CUDA"):
+            tfa.cross_attention_map_tiles(q, k, v, 40**-0.5, c)
+    assert tfa.LAUNCHES["cross_attention_map_fwd"] == 0
 
 
 def test_cross_map_backward_function_matches_autograd():

@@ -13,7 +13,9 @@ Phases:
      ragged shape, in every tile configuration, and run twice for bitwise
      equal gradients; K3 at SD1.5's and SD2.1's cross shapes and a ragged
      one, 77 and 33 keys, every tile configuration, run twice for bitwise
-     equal out and map), V1 and W1 of the microbench (at head dim 40 and 64
+     equal out and map; K1-K3 also at the batch path's shapes, K1 [64,
+     4096, 40], K2 [32, 4096, 40], K3 [4, 8, 256, 160], timed there too),
+     V1 and W1 of the microbench (at head dim 40 and 64
      and a ragged shape, in every tile configuration; V1 without bf16_p
      to a tighter rms limit that a bf16-rounded P fails; W1 run twice for
      bitwise equal gradients); time kernel, plain
@@ -27,9 +29,19 @@ Phases:
      two-object meta-prompt, default thresholds; one warm-up seed, then one
      timed seed with the kernels' launch counters zeroed just before it;
      K1-K3 must each have launched; its model-FLOP share of the bf16 peak;
-  6. the microbench path (``perf_attn_kernel.run``, few reps) with the
+  6. the batch path: ``workload.generate_batch``, B = 4 (two seeds under
+     each of two prompts), full width and 50 steps, after a short warm-up
+     batch, with the counters zeroed just before it: K1-K3 must each have
+     launched; s/image, MFU and peak memory. Then at 15 steps with
+     paint-with-words on, under deterministic algorithms, a batch run
+     twice must be bitwise equal and sample 0 must not move by a bit when
+     the other samples' prompts change; each sample's distance to its
+     one-sample run is printed; a standard-SD batch (10 steps) must agree
+     with the one-sample runs of its seeds and prompts in float32 (and is
+     printed in bf16);
+  7. the microbench path (``perf_attn_kernel.run``, few reps) with the
      counters zeroed just before it: V1 and W1 must each have launched;
-  7. a {"kernels": [...]} line, then the last line
+  8. a {"kernels": [...]} line, then the last line
      {"ok": true, "device": {...}}.
 
 Any failed check or exception exits non-zero before the last line. Weights
@@ -51,6 +63,34 @@ MICROBENCH_REPS = 5
 # the sources on csrc/hopper.cuh, whose ptxas lines are printed in full
 HOPPER_SOURCES = ("flash_self_fwd.cu", "flash_self_bwd.cu", "flash_self_fwd_v1.cu", "flash_self_bwd_w1.cu",
                   "cross_attention_map.cu")
+# the batch path's checks (phase 6)
+BATCH_WARMUP_STEPS = 2
+INDEPENDENCE_STEPS = 15  # threshold step 0 and every recursion step (0-14)
+INDEPENDENCE_PWW_STOP = 15
+STANDARD_STEPS = 10
+# samples 1-3 of the second independence batch: two groups, as in
+# workload.BATCH_PROMPTS, other words and boxes
+OTHER_PROMPTS = (
+    "a [cat:.5,.5,.4,.4] and a [red car:.05,.05,.35,.4]",
+    "a [lighthouse:.1,.55,.35,.4] and a [small boat:.6,.05,.3,.5]",
+    "a [teapot:.3,.3,.4,.4] and a [green apple:.0,.6,.3,.35]",
+)
+# the standard-SD batch: four texts (standard SD reads no boxes)
+STANDARD_PROMPTS = ("a robot and a blue vase", "a cat on a red sofa", "a lighthouse at dusk", "two apples on a table")
+# On the card, a guided trajectory is not bitwise reproducible under
+# PyTorch's default algorithms: two runs of one guided batch differ by a few
+# percent of the latents' largest value by step 15 (printed below). Under
+# torch.use_deterministic_algorithms(True) two runs of one batch are bitwise
+# equal, and since no kernel of the batch reads another sample's rows,
+# sample 0 of a batch whose other samples take other prompts is bitwise
+# equal to sample 0 of the first batch. Any coupling of the samples (the
+# paint-with-words score max over the whole batch, a row mixed up) moves it.
+# Standard SD, a batch against one-sample runs, in float32 (plain attention:
+# the kernels take bf16): the CFG forward runs at batch 8 against 2, so the
+# products sum in other orders, about 2^-20 relative each, through 10
+# steps. In bf16 the same comparison reads a few percent (rounding at other
+# batch shapes), which cannot tell a fault from rounding; it is printed.
+STANDARD_MAX_REL, STANDARD_RMS_REL = 2.0**-10, 2.0**-12
 
 
 def log(*a):
@@ -146,9 +186,11 @@ def kernel_phase(results: dict) -> list:
 
     kernels = []
     # ---- K1 forward: SD2.1 D=64, a ragged [3, 1000, 40] (TMA zero-fill and
-    # the -inf key mask), eval call [8, 4096, 40], CFG call [2*8, 4096, 40]
+    # the -inf key mask), the batch path's CFG call [2*4*8, 4096, 40], eval
+    # call [8, 4096, 40], CFG call [2*8, 4096, 40]
     log("K1 flash_self_fwd")
-    for bh, n, d in ((10, 4096, 64), (3, 1000, 40), (8, 4096, 40), (16, 4096, 40)):
+    k1_batch = {}
+    for bh, n, d in ((10, 4096, 64), (3, 1000, 40), (64, 4096, 40), (8, 4096, 40), (16, 4096, 40)):
         q, k, v = randn(bh, n, d), randn(bh, n, d), randn(bh, n, d)
         scale = d**-0.5
         o, lse = fa.flash_self_fwd(q, k, v, scale)
@@ -164,6 +206,14 @@ def kernel_phase(results: dict) -> list:
                 torch.cuda.synchronize()
                 check_close(f"K1 tiles {fa.K1_TILE_CONFIGS[c]} out [{bh},{n},{d}]", oc, ref, results)
                 check(f"K1 tiles {fa.K1_TILE_CONFIGS[c]} lse [{bh},{n},{d}]", max_err(lc, lse_ref), LSE_TOL, results)
+        if bh == 64:
+            q4, k4, v4 = (t.reshape(8, 8, n, d) for t in (q, k, v))
+            b_ms, b_by = bound_ms(pak.fwd_flops(bh, n, d), 4 * bh * n * d * 2 + bh * n * 4, exps=bh * n * n)
+            k1_batch = {"shape": [bh, n, d], "max_abs_err": max_err(o, ref), "tol": k1_tol, "bound_ms": b_ms,
+                        "bound_by": b_by,
+                        **timed(lambda: fa.flash_self_fwd(q, k, v, scale), lambda: fa.flash_self_plain(q, k, v, scale),
+                                lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))}
+            del ref, lse_ref, q4, k4, v4
     # the row and the timings are the CFG call's, the last case above
     k1_err = max_err(o, ref)
     q4, k4, v4 = (t.reshape(2, 8, n, d) for t in (q, k, v))
@@ -177,6 +227,7 @@ def kernel_phase(results: dict) -> list:
         "bound_ms": b_ms, "bound_by": b_by,
         **timed(lambda: fa.flash_self_fwd(q, k, v, scale), lambda: fa.flash_self_plain(q, k, v, scale),
                 lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)),
+        "batch_shape": k1_batch,
     })
 
     # ---- V1 forward (microbench): the CFG and eval shapes, SD2.1 D=64 and a
@@ -236,13 +287,14 @@ def kernel_phase(results: dict) -> list:
     })
 
     # ---- K2 backward: SD2.1 [5, 4096, 64], a ragged [3, 1000, 40] (TMA
-    # zero-fill, padded query statistics, the key mask), the eval call
-    # [8, 4096, 40]; against its plain version given the same o and lse,
-    # against autograd through the plain forward, and run twice for the bits
+    # zero-fill, padded query statistics, the key mask), the batch path's
+    # eval call [4*8, 4096, 40], the eval call [8, 4096, 40]; against its
+    # plain version given the same o and lse, against autograd through the
+    # plain forward, and run twice for the bits
     log("K2 flash_self_bwd")
     names = ("dq", "dk", "dv")
-    k2_row = None
-    for bh, n, d in ((5, 4096, 64), (3, 1000, 40), (8, 4096, 40)):
+    k2_row, k2_batch = None, {}
+    for bh, n, d in ((5, 4096, 64), (3, 1000, 40), (32, 4096, 40), (8, 4096, 40)):
         q, k, v, do = randn(bh, n, d), randn(bh, n, d), randn(bh, n, d), randn(bh, n, d)
         scale = d**-0.5
         o, lse = fa.flash_self_fwd(q, k, v, scale)
@@ -258,7 +310,7 @@ def kernel_phase(results: dict) -> list:
         for nm, a, b in zip(names, got, grads):
             check_close(f"K2 {nm} vs autograd [{bh},{n},{d}]", a, b, results)
         del qr, kr, vr, out_ref, grads
-        if d == 40:
+        if d == 40 and bh != 32:
             # the microbench's other tile configurations, off the main path
             for c, cfg in enumerate(fa.K2_TILE_CONFIGS):
                 gc = fa.flash_self_bwd_tiles(q, k, v, o, do, lse, scale, c)
@@ -268,6 +320,14 @@ def kernel_phase(results: dict) -> list:
                 check_same(f"K2 tiles {cfg} twice [{bh},{n},{d}]", gc,
                            fa.flash_self_bwd_tiles(q, k, v, o, do, lse, scale, c), results)
         del want
+        if bh == 32:
+            b_ms, b_by = bound_ms(pak.bwd_flops(bh, n, d), 8 * bh * n * d * 2 + bh * n * 4, exps=bh * n * n)
+            _fwd, sdpa_bwd, _grads = pak.sdpa_graphs(q, k, v, do, scale)
+            k2_batch = {"shape": [bh, n, d], "max_abs_err": max(errs), "tol": min(tols), "deterministic": True,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        **timed(lambda: fa.flash_self_bwd(q, k, v, o, do, lse, scale),
+                                lambda: fa.flash_self_bwd_plain(q, k, v, o, do, lse, scale), sdpa_bwd)}
+            del _fwd, sdpa_bwd, _grads
         if (bh, n, d) == pak.BWD_SHAPE:
             # one exponential per pair, what the algorithm needs (K2 computes two)
             b_ms, b_by = bound_ms(pak.bwd_flops(bh, n, d), 8 * bh * n * d * 2 + bh * n * 4, exps=bh * n * n)
@@ -281,6 +341,7 @@ def kernel_phase(results: dict) -> list:
                 **timed(lambda: fa.flash_self_bwd(q, k, v, o, do, lse, scale),
                         lambda: fa.flash_self_bwd_plain(q, k, v, o, do, lse, scale), sdpa_bwd),
             }
+    k2_row["batch_shape"] = k2_batch
     kernels.append(k2_row)
 
     # ---- W1 backward (microbench): SD2.1 D=64, a ragged [3, 1000, 40] and
@@ -335,14 +396,15 @@ def kernel_phase(results: dict) -> list:
     })
 
     # ---- K3 cross-attention with map: SD1.5's captured 16x16 layers
-    # [1|2, 8, 256, 160] (the eval and a batch of two), SD2.1's [1, 20, 256,
+    # [1|2|4, 8, 256, 160] (the eval, a batch of two, the batch path's eval
+    # of four, timed too), SD2.1's [1, 20, 256,
     # 64] (clusters of 7 blocks of 3 or 2 heads) and a ragged [1, 5, 100, 40]
     # (head dim padded to 48, a cluster of 5), each with 77 and 33 keys; main
     # entry and every tile configuration, each run twice for the bits (no
     # atomics). The row is the eval's [1, 8, 256, 160] with 77 keys.
     log("K3 cross_attention_map_fwd")
-    k3_shapes = ((1, 8, 256, 160), (2, 8, 256, 160), (1, 20, 256, 64), (1, 5, 100, 40))
-    k3_d64 = {}
+    k3_shapes = ((1, 8, 256, 160), (4, 8, 256, 160), (2, 8, 256, 160), (1, 20, 256, 64), (1, 5, 100, 40))
+    k3_d64, k3_batch = {}, {}
     for (b, h, nq, d), nk in ((shape, nk) for shape in k3_shapes[::-1] for nk in (33, 77)):
         q, k, v = randn(b, h, nq, d), randn(b, h, nk, d), randn(b, h, nk, d)
         scale = d**-0.5
@@ -362,6 +424,11 @@ def kernel_phase(results: dict) -> list:
                 k3_main = {"max_abs_err": max_err(o, o_ref), "tol": k3_tol, "map_max_abs_err": e_map, "map_tol": 1e-5}
         if (b, h, nq, d, nk) == (1, 20, 256, 64, 77):
             k3_d64 = {"shape": [b, h, nq, nk, d], **graph_alternating_ms(
+                {"graph_ms": runs[0][1], "plain_graph_ms": lambda: fa.cross_attention_map_plain(q, k, v, scale)})}
+        if (b, h, nq, d, nk) == (4, 8, 256, 160, 77):
+            b_ms, b_by = bound_ms(4.0 * b * h * nq * nk * d,
+                                  (2 * b * h * nq * d + 2 * b * h * nk * d) * 2 + b * nq * nk * 4, exps=b * h * nq * nk)
+            k3_batch = {"shape": [b, h, nq, nk, d], **k3_main, "bound_ms": b_ms, "bound_by": b_by, **graph_alternating_ms(
                 {"graph_ms": runs[0][1], "plain_graph_ms": lambda: fa.cross_attention_map_plain(q, k, v, scale)})}
     # the last case above: [1, 8, 256, 160], 77 keys
     # gradient through the autograd Function (PyTorch-ops backward)
@@ -390,7 +457,7 @@ def kernel_phase(results: dict) -> list:
         "config": fa.K3_TILE_CONFIGS[fa.K3_MAIN_CONFIG], "deterministic": True,
         "shape": [b, h, nq, nk, d], **k3_main,
         "bound_ms": b_ms, "bound_by": b_by,
-        **timed(kernel, plain), **graphs, "d64": k3_d64,
+        **timed(kernel, plain), **graphs, "d64": k3_d64, "batch_shape": k3_batch,
     })
     return kernels
 
@@ -401,6 +468,7 @@ def eval_phase(sd, pipe, results: dict) -> None:
     import torch
 
     from guided_attention_tpu_torch import workload
+    from guided_attention_tpu_torch.guidance.spec import stack_specs
     from guided_attention_tpu_torch.pipeline import _Loop
     from guided_attention_tpu_torch.runner import PrepareOptions
 
@@ -412,9 +480,9 @@ def eval_phase(sd, pipe, results: dict) -> None:
     outs = {}
     for route, flash in (("kernels", True), ("plain", False)):
         sd.unet.config = dataclasses.replace(cfg, use_flash_attention=flash)
-        loop = _Loop(sd, statics, hp, emb, spec, sched, arrays, None, ("up", "down", "mid"))
+        loop = _Loop(sd, statics, hp, emb[None], stack_specs([spec]), sched, arrays, None, ("up", "down", "mid"))
         with torch.no_grad():
-            loss, aux, grad = loop.guidance_eval(lat, t, 0.0, lat)
+            loss, aux, grad = loop.guidance_eval(lat, [0], t, 0.0, lat)
         outs[route] = (float(loss), grad.float())
     sd.unet.config = cfg
     (lk, gk), (lp, gp) = outs["kernels"], outs["plain"]
@@ -429,6 +497,129 @@ def eval_phase(sd, pipe, results: dict) -> None:
     check("eval grad (rel to max|grad|)", gerr / float(gp.abs().max()), 0.04, results)
     if not (torch.isfinite(gk).all() and float(gk.abs().max()) > 0):
         raise SystemExit("eval gradient through the kernels is not finite and nonzero")
+
+
+def rel_max_err(out, ref) -> float:
+    return max_err(out, ref) / float(ref.float().abs().max())
+
+
+def batch_phase(pipe, results: dict) -> dict:
+    """Phase 6: the batch path at full width, then its checks. Returns the
+    K1-K3 launch counts of the timed batch."""
+    import numpy as np
+    import torch
+
+    from guided_attention_tpu_torch import workload
+    from guided_attention_tpu_torch.config import HyperParams
+    from guided_attention_tpu_torch.models.bundle import StableDiffusion
+    from guided_attention_tpu_torch.ops.flash_attention import LAUNCHES, reset_launches
+    from guided_attention_tpu_torch.runner import GuidedAttentionPipeline
+    from guided_attention_tpu_torch.runtime import flops
+
+    cfg = pipe.sd.unet.config
+    seeds, prompts = list(workload.BATCH_SEEDS), workload.batch_prompts(len(workload.BATCH_SEEDS))
+    t0 = time.perf_counter()
+    workload.generate_batch(pipe, steps=BATCH_WARMUP_STEPS)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = workload.generate_batch(pipe)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {name: LAUNCHES[name] for name in MAIN_PATH_KERNELS}
+    work = sum(flops.generation_flops(cfg, o.diagnostics, workload.STEPS) for o in outs)
+    samples = [{
+        "seed": seed, "prompt": prompt,
+        "refine_iters_step0": int(o.diagnostics.refine_iters[0]),
+        "recursions_0_14": o.diagnostics.recursions[:15].tolist(),
+        "n_evals_total": int(o.diagnostics.n_evals.sum()),
+        "image_std": float(o.images_u8.std()),
+    } for seed, prompt, o in zip(seeds, prompts, outs)]
+    batch = {
+        "batch": len(outs), "steps": workload.STEPS, "warmup_s": warm, "warmup_steps": BATCH_WARMUP_STEPS,
+        "s_per_batch": sec, "s_per_image": sec / len(outs),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "unet_tflop": work / 1e12, "mfu": flops.mfu(work, sec), "launches": launches, "samples": samples,
+    }
+    results["batch"] = batch
+    log("batch path: " + json.dumps(batch))
+    log(f"batch path: {sec:.3f} s/batch, {batch['s_per_image']:.3f} s/image, {batch['unet_tflop']:.3f} TFLOP of UNet "
+        f"work = {100 * batch['mfu']:.3f}% of the bf16 peak, peak {batch['peak_mem_gib']:.3f} GiB ({results['card']})")
+    for o in outs:
+        if (o.images_u8.shape != (1, 512, 512, 3) or not np.isfinite(o.latents).all()
+                or float(o.images_u8.std()) <= 0):
+            raise SystemExit("batch path output is malformed (shape, finiteness or constant image)")
+    for name, count in launches.items():
+        if count <= 0:
+            raise SystemExit(f"kernel {name} was not launched on the batch path")
+
+    # sample 0 against a batch whose other samples take other prompts, with
+    # paint-with-words on (its score max is per sample), under deterministic
+    # algorithms; the first batch twice is the control
+    hp = HyperParams(paint_with_words_stop=INDEPENDENCE_PWW_STOP)
+    kw = dict(steps=INDEPENDENCE_STEPS, hp=hp, decode=False)
+    torch.use_deterministic_algorithms(True)
+    try:
+        first = workload.generate_batch(pipe, seeds, prompts, **kw)
+        again = workload.generate_batch(pipe, seeds, prompts, **kw)
+        other = workload.generate_batch(pipe, seeds, [prompts[0], *OTHER_PROMPTS], **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for tag, outs_ in (("first", first), ("other prompts", other)):
+        log(f"  independence batch ({tag}): refine_iters[0] {[int(o.diagnostics.refine_iters[0]) for o in outs_]}, "
+            f"n_evals {[int(o.diagnostics.n_evals.sum()) for o in outs_]}")
+    independence = rel_max_err(torch.from_numpy(other[0].latents), torch.from_numpy(first[0].latents))
+    log(f"  independence batch sample 0: rel max err {independence:.3e}")
+    # default algorithms, no limit: the same batch twice, and each sample
+    # against its one-sample run (rounding at other shapes, carried by the
+    # refinement, may also branch a threshold test otherwise)
+    runs = [workload.generate_batch(pipe, seeds, prompts, **kw) for _ in range(2)]
+    twice = [rel_max_err(torch.from_numpy(a.latents), torch.from_numpy(b.latents)) for a, b in zip(*runs)]
+    log("  guided batch run twice, default algorithms (rel max err per sample): " + json.dumps(twice))
+    dist = []
+    for seed, prompt, o in zip(seeds, prompts, runs[0]):
+        single = pipe(meta_prompt=prompt, seed=seed, num_inference_steps=INDEPENDENCE_STEPS, hp=hp, decode=False,
+                      capture_diagnostics=False)
+        dist.append({"rel_max_err": rel_max_err(torch.from_numpy(o.latents), torch.from_numpy(single.latents)),
+                     "n_evals": [int(o.diagnostics.n_evals.sum()), int(single.diagnostics.n_evals.sum())]})
+    results["batch_guided_default_twice"] = twice
+    results["batch_guided_vs_single"] = dist
+    log("  guided batch against one-sample runs (batch, single n_evals): " + json.dumps(dist))
+    # standard SD: the bf16 batch twice (printed: no guidance, no
+    # refinement to carry a difference), then batch against one-sample
+    # runs, bf16 (printed) and float32
+    std_twice = [workload.generate_batch(pipe, seeds, STANDARD_PROMPTS, steps=STANDARD_STEPS, run_standard_sd=True,
+                                         decode=False) for _ in range(2)]
+    log("  standard-SD bf16 batch run twice, default algorithms (rel max err per sample): " + json.dumps(
+        [rel_max_err(torch.from_numpy(a.latents), torch.from_numpy(b.latents)) for a, b in zip(*std_twice)]))
+    std_errs = {}
+    sd32 = StableDiffusion.create("sd15", torch.float32, device="cuda", seed=workload.WEIGHT_SEED)
+    sd32.unet.config = dataclasses.replace(sd32.unet.config, use_flash_attention=False)
+    for name, p in (("bf16", pipe), ("float32", GuidedAttentionPipeline(sd32))):
+        std = workload.generate_batch(p, seeds, STANDARD_PROMPTS, steps=STANDARD_STEPS, run_standard_sd=True,
+                                      decode=False)
+        std_errs[name] = []
+        for seed, prompt, o in zip(seeds, STANDARD_PROMPTS, std):
+            single = p(meta_prompt=prompt, seed=seed, num_inference_steps=STANDARD_STEPS, run_standard_sd=True,
+                       decode=False, capture_diagnostics=False)
+            got, want = torch.from_numpy(o.latents), torch.from_numpy(single.latents)
+            std_errs[name].append((rel_max_err(got, want), rms_rel_err(got, want)))
+        log(f"  standard-SD batch against one-sample runs, {name} (rel max, rel rms): " + json.dumps(std_errs[name]))
+    del sd32
+    results["batch_standard_vs_single"] = std_errs
+
+    check_same("independence batch run twice (deterministic algorithms)", [torch.from_numpy(o.latents) for o in again],
+               [torch.from_numpy(o.latents) for o in first], results)
+    check_same("batch sample 0 with the other samples' prompts changed (deterministic algorithms)",
+               [torch.from_numpy(other[0].latents)], [torch.from_numpy(first[0].latents)], results)
+    for b, (err, rms) in enumerate(std_errs["float32"]):
+        check(f"standard-SD float32 batch sample {b} against its one-sample run (rel to max|latent|)", err,
+              STANDARD_MAX_REL, results, rms_rel=rms)
+        if rms > STANDARD_RMS_REL:
+            raise SystemExit(f"standard-SD batch sample {b}: relative rms error {rms} above {STANDARD_RMS_REL}")
+    return launches
 
 
 def main() -> int:
@@ -521,7 +712,10 @@ def main() -> int:
     if img.shape != (1, 512, 512, 3) or not main["latents_finite"] or main["image_std"] <= 0:
         raise SystemExit("main path output is malformed (shape, finiteness or constant image)")
 
-    # ---- 6. the microbench path
+    # ---- 6. the batch path
+    batch_launches = batch_phase(pipe, results)
+
+    # ---- 7. the microbench path
     reset_launches()
     bench = perf_attn_kernel.run(reps=MICROBENCH_REPS)
     torch.cuda.synchronize()
@@ -535,6 +729,8 @@ def main() -> int:
             raise SystemExit(f"kernel {name} was not launched on the {path} path")
     for row in kernels:
         row["launches"] = launches[row["name"]]
+        if row["name"] in batch_launches:
+            row["batch_launches"] = batch_launches[row["name"]]
 
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start

@@ -176,6 +176,7 @@ def meets_threshold(
     groups_unscaled: torch.Tensor, group_valid: torch.Tensor, threshold
 ) -> torch.Tensor:
     """True iff every valid group's unscaled loss is <= threshold
-    (pipeline:1074-1088). The pipeline's last-value rule calls it with the
+    (pipeline:1074-1088), over the last axis: [G] gives one answer, [B, G]
+    one per sample. The pipeline's last-value rule calls it with the
     LAST threshold of the run's dict (meets_threshold(-1), pipeline:1083)."""
-    return torch.all(torch.where(group_valid, groups_unscaled <= threshold, True))
+    return torch.all(torch.where(group_valid, groups_unscaled <= threshold, True), dim=-1)

@@ -222,3 +222,40 @@ def build_guidance_spec(
         words=tuple(words),
         subprompts=tuple(groups),
     )
+
+
+_SPEC_TENSORS = ("token_mask", "ann_type", "center_xy", "subprompt_id", "valid_text", "inside_mask", "w_in", "w_out",
+                 "at_most")
+
+
+def stack_specs(specs: Sequence[GuidanceSpec]) -> GuidanceSpec:
+    """Stack per-prompt specs along a new leading batch axis (the JAX
+    package's ``runner._stack_specs``): every tensor, ``pww_masks`` included
+    ([B, res*res, K]), gains it; the scalar fields and the custom losses are
+    shared, so every prompt must give the same group structure and the same
+    custom-loss bindings. ``spec_row`` takes one sample back out."""
+    s0 = specs[0]
+    for k, s in enumerate(specs[1:], 1):
+        if s.n_groups != s0.n_groups or s.custom_group != s0.custom_group:
+            raise ValueError(
+                "multi-prompt batch requires every prompt to produce the same "
+                "sub-prompt group structure (prompt 0: "
+                f"{s0.n_groups} groups, custom-loss group {s0.custom_group}; "
+                f"prompt {k}: {s.n_groups} groups, custom-loss group "
+                f"{s.custom_group}; -1 = no custom loss)"
+            )
+        if s.custom_losses != s0.custom_losses:
+            raise ValueError(
+                "multi-prompt batch requires identical custom-loss bindings "
+                "across prompts (custom losses bake token indices into the "
+                "traced program as static state)"
+            )
+    stacked = {name: torch.stack([getattr(s, name) for s in specs]) for name in _SPEC_TENSORS}
+    pww = {res: torch.stack([s.pww_masks[res] for s in specs]) for res in s0.pww_masks}
+    return dataclasses.replace(s0, pww_masks=pww, **stacked)
+
+
+def spec_row(spec: GuidanceSpec, b: int) -> GuidanceSpec:
+    """Sample ``b`` of a stacked spec (views of its tensors)."""
+    rows = {name: getattr(spec, name)[b] for name in _SPEC_TENSORS}
+    return dataclasses.replace(spec, pww_masks={res: m[b] for res, m in spec.pww_masks.items()}, **rows)

@@ -5,7 +5,9 @@ package's ``models/unet.py``).
   cross/self attention maps of every layer selected by ``capture`` (a set of
   ``(kind, resolution)`` pairs, kind in {"cross", "self", "cross_perhead"}),
   ``aux["deep"]`` the bottleneck residual; ``deep_inject`` replaces that
-  residual for deep-feature optimization.
+  residual for deep-feature optimization: one row per sample, each given
+  to the sample's B/S consecutive rows (its CFG pair), and where
+  ``deep_inject_gate`` (bool per sample) is False the sample keeps its own.
 * paint-with-words enters as per-resolution masks plus a per-step gate.
 * ``truncate=True`` stops after the last attention layer that captures
   anything (or after the down blocks when nothing is captured) and returns
@@ -345,6 +347,7 @@ class UNet2DCondition(nn.Module):
         pww_gate=None,
         deep_inject: Optional[torch.Tensor] = None,
         truncate: bool = False,
+        deep_inject_gate: Optional[torch.Tensor] = None,
     ):
         cfg = self.config
         dtype = self.conv_in.weight.dtype
@@ -395,7 +398,12 @@ class UNet2DCondition(nn.Module):
             return None, {"maps": maps, "deep": deep_nhwc}
         if deep_inject is not None:
             inj = deep_inject.to(dtype).permute(0, 3, 1, 2)
-            res_samples[-1] = inj.expand(b, *inj.shape[1:])
+            rows = b // inj.shape[0]
+            inj = inj.repeat_interleave(rows, dim=0)
+            if deep_inject_gate is not None:
+                keep = deep_inject_gate.repeat_interleave(rows)[:, None, None, None]
+                inj = torch.where(keep, inj, res_samples[-1])
+            res_samples[-1] = inj
 
         mid = self.mid_block
         h = mid.resnets[0](h, temb)

@@ -7,8 +7,12 @@ utils/ptp_utils.py:59-146).
 
 Score math (ptp_utils.py:97-146):
   * scores = scale * q @ k^T in float32;
-  * paint-with-words: scores += mask * 0.4 * max(scores) * gate, the max
-    global over the whole [B, H, Q, K] score tensor;
+  * paint-with-words: scores += mask * 0.4 * max(scores) * gate. A mask
+    [Q, K] takes the max over the whole [B, H, Q, K] score tensor; a mask
+    per sample [S, Q, K] takes it per sample, over that sample's B/S
+    consecutive rows (its CFG pair, or its one eval row), as the JAX
+    package's does under ``vmap``, so that no sample's scores reach another
+    sample's forward or gradient;
   * probs = softmax(scores) in float32, cast to the compute dtype for the
     probs @ v product; the captured map stays float32.
 
@@ -54,7 +58,8 @@ def attention(
       q: [B, Nq, C]; k, v: [B, Nk, C] (C = heads * head_dim).
       capture: also return the head-mean probability map [B, Nq, Nk] (fp32).
       capture_perhead: return the un-pooled probs [B, H, Nq, Nk] instead.
-      pww_mask: [Nq, Nk] paint-with-words additive mask (or None).
+      pww_mask: paint-with-words additive mask [Nq, Nk], or [S, Nq, Nk]
+        for S samples of B/S consecutive rows each (or None).
       pww_gate: scalar = step_gate * log(1 + sigma_t) (or None).
       use_flash: allow the kernels (see the module docstring).
 
@@ -85,7 +90,10 @@ def attention(
 
     if pww_mask is not None and pww_gate is not None:
         gate = torch.as_tensor(pww_gate, dtype=torch.float32, device=scores.device)
-        scores = scores + pww_mask.float()[None, None] * (0.4 * scores.max() * gate)
+        mask = pww_mask.float().reshape(-1, 1, 1, nq, k.shape[1])  # [S, 1, 1, Nq, Nk]
+        per_sample = scores.reshape(mask.shape[0], -1, *scores.shape[1:])  # [S, B/S, H, Nq, Nk]
+        top = per_sample.amax(dim=(1, 2, 3, 4), keepdim=True)
+        scores = (per_sample + mask * (0.4 * top * gate)).reshape(scores.shape)
 
     probs = torch.softmax(scores, dim=-1)
     if capture_perhead:

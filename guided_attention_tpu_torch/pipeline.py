@@ -7,21 +7,33 @@ Each step runs, as in the reference (pipeline_guided_attention.py:925-1053):
     eval0 / refine / final phase loop (pipeline:501-578);
   * the gradient-update gate and the re-noise recursion ("time travel",
     pipeline:1044-1053);
-  * the batch-2 CFG forward (no gradient) and the DDIM step in float32.
+  * the CFG forward (no gradient; two rows a sample) and the DDIM step in
+    float32.
 
 The JAX package traces all of it into one ``lax.scan``; here it is a Python
-loop, and each threshold test is a host read of one boolean. The eval
-forward is truncated after the last captured layer (``UNet2DCondition``'s
-``truncate``), which XLA's dead-code elimination does for the JAX program.
+loop, and each threshold test is a host read of one boolean per sample. The
+eval forward is truncated after the last captured layer
+(``UNet2DCondition``'s ``truncate``), which XLA's dead-code elimination does
+for the JAX program.
 
-Random draws come from a ``noise(kind, i, r)`` callable ("renoise" or "eta",
-step i, recursion r or None) so that tests can hand in the JAX package's
-own draws; the runner's default draws from the run's ``torch.Generator``.
+The loop runs a batch of B samples (``generate_batch``; the runner's
+one-image ``dispatch`` is B = 1), as the JAX package vmaps its one-sample
+loop: every sample keeps its own phase, refinement count, momentum, update
+gate, recursion count and draws, so sample b of a batch is the one-sample
+run of its latents, prompt and noise. Each eval and each recursion pass runs only the samples still in
+it (the JAX package evaluates all of them and freezes the finished ones by a
+select). The CFG forward's rows are each sample's (uncond, cond) pair in
+turn, which is how paint-with-words finds a sample's rows.
+
+Random draws come from one ``noise(kind, i, r)`` callable per sample
+("renoise" or "eta", step i, recursion r or None) so that tests can hand in
+the JAX package's own draws; the runner's default draws from the sample's
+``torch.Generator``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +46,7 @@ from guided_attention_tpu_torch.guidance.losses import (
     meets_threshold,
     per_token_losses,
 )
-from guided_attention_tpu_torch.guidance.spec import GuidanceSpec
+from guided_attention_tpu_torch.guidance.spec import GuidanceSpec, spec_row
 from guided_attention_tpu_torch.models.unet import EMPTY_CAPTURE
 from guided_attention_tpu_torch.schedulers.ddim import DDIMSchedule, ddim_step, renoise
 
@@ -60,8 +72,10 @@ def sgd_momentum_update(v, grad, vel, lr):
 
 def plain_update(v, grad, lr, loss):
     """The reference's ``_update_latent`` (pipeline:455-470): v - lr*grad in
-    float32, applied only when loss != 0."""
-    return torch.where(loss != 0.0, (v.float() - lr * grad.float()).to(v.dtype), v)
+    float32, applied only when loss != 0 (``loss`` a scalar, or one per
+    sample of v's leading axis)."""
+    gate = (loss != 0.0).reshape(loss.shape + (1,) * (v.dim() - loss.dim()))
+    return torch.where(gate, (v.float() - lr * grad.float()).to(v.dtype), v)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,18 +173,22 @@ class StepDiag:
     eval_maps: np.ndarray  # f16[S, R_sub, R, R, K] (or unit)
     eval_latents: np.ndarray  # f16[S, R_sub, h, w, C] (or unit)
 
+    def sample(self, b: int) -> "StepDiag":
+        """Sample ``b`` of a batch's diagnostics (every field [B, S, ...])."""
+        return StepDiag(**{f.name: getattr(self, f.name)[b] for f in dataclasses.fields(self)})
+
 
 def aggregate_cross_maps(maps: Dict[str, Any], res: int, from_where=("up", "down", "mid")):
     """Mean over layers (heads already averaged) of the captured cross maps
-    at ``res`` -> [R, R, K] (reference utils/ptp_utils.py:273-289)."""
+    at ``res`` -> [B, R, R, K] (reference utils/ptp_utils.py:273-289)."""
     items = []
     for place in from_where:
         items.extend(maps[f"{place}_cross"])
-    stacked = torch.stack([m[0] for m in items], dim=0)  # [L, Q, K]
-    return stacked.mean(dim=0).reshape(res, res, stacked.shape[-1])
+    stacked = torch.stack(items, dim=0)  # [L, B, Q, K]
+    return stacked.mean(dim=0).reshape(-1, res, res, stacked.shape[-1])
 
 
-def generate(
+def generate_batch(
     sd,
     statics: GenStatics,
     hp: HyperParams,
@@ -179,13 +197,29 @@ def generate(
     spec: GuidanceSpec,
     sched: DDIMSchedule,
     arrays: StepArrays,
-    noise: NoiseSource,
+    noise: Sequence[NoiseSource],
     from_where: Tuple[str, ...] = ("up", "down", "mid"),
 ) -> Tuple[torch.Tensor, StepDiag]:
-    """Run the guided loop for one sample from ``latents0`` [1, h, w, C]
-    (NHWC); returns (final latents, StepDiag)."""
+    """Run the guided loop for B samples: ``latents0`` [B, h, w, C], ``emb``
+    [B, 2, 77, D], ``spec`` stacked (``stack_specs``), one noise source per
+    sample. Returns (final latents [B, h, w, C], StepDiag with every field
+    [B, S, ...])."""
     with torch.no_grad():
         return _Loop(sd, statics, hp, emb, spec, sched, arrays, noise, from_where).run(latents0)
+
+
+@dataclasses.dataclass
+class _Pass:
+    """One recursion pass's results, one row per sample it ran."""
+
+    prev: torch.Tensor
+    x0: torch.Tensor
+    loss: torch.Tensor  # [n]
+    aux: Dict[str, torch.Tensor]
+    bufs: Dict[str, torch.Tensor]
+    did_update: List[bool]
+    refine_iters: List[int]
+    n_evals: List[int]
 
 
 class _Loop:
@@ -195,12 +229,12 @@ class _Loop:
         self.unet = sd.unet
         self.st = statics
         self.hp = hp
-        self.spec = spec
         self.sched = sched
         self.arrays = arrays
         self.noise = noise
         self.from_where = from_where
-        self.uncond, self.cond = emb[0:1], emb[1:2]
+        self.uncond, self.cond = emb[:, 0], emb[:, 1]
+        self.specs = [spec_row(spec, b) for b in range(emb.shape[0])]
         self.pww = spec.pww_masks if spec.pww_masks else None
         self.R = statics.attention_res
         self.R_sub = statics.max_refinement_steps + 2
@@ -208,38 +242,73 @@ class _Loop:
         self.guided = not statics.run_standard_sd
         self.deep_mode = bool(hp.optimize_deep_latent) and self.guided
         self.timesteps = [int(t) for t in sched.timesteps.tolist()]
+        self._indices: Dict[Tuple, torch.Tensor] = {}
+
+    # --- rows of a batch ----------------------------------------------------
+    # ``rows`` lists distinct rows in increasing order, so all of them is
+    # the identity: the one-sample loop and a batch whose samples move
+    # together pay no gather or scatter
+    def _index(self, rows) -> torch.Tensor:
+        key = tuple(rows)
+        if key not in self._indices:
+            self._indices[key] = torch.tensor(key, device=self.cond.device)
+        return self._indices[key]
+
+    def take(self, x, rows):
+        if isinstance(x, dict):
+            return {k: self.take(v, rows) for k, v in x.items()}
+        return x if len(rows) == x.shape[0] else x[self._index(rows)]
+
+    def put(self, x, rows, y):
+        """``x`` with its rows ``rows`` replaced by ``y`` (a new tensor)."""
+        if isinstance(x, dict):
+            return {k: self.put(x[k], rows, y[k]) for k in x}
+        return y if len(rows) == x.shape[0] else x.index_put((self._index(rows),), y)
 
     # --- UNet calls -------------------------------------------------------
-    def unet_eps(self, latents, t, context, cap=EMPTY_CAPTURE, gate=None, deep_inject=None, truncate=False):
-        return self.unet(latents, t, context, capture=cap, pww=self.pww, pww_gate=gate, deep_inject=deep_inject, truncate=truncate)
+    def unet_eps(self, latents, t, samples, context, cap=EMPTY_CAPTURE, gate=None, deep_inject=None, truncate=False,
+                 deep_inject_gate=None):
+        pww = None if self.pww is None else {res: self.take(m, samples) for res, m in self.pww.items()}
+        return self.unet(latents, t, context, capture=cap, pww=pww, pww_gate=gate, deep_inject=deep_inject,
+                         truncate=truncate, deep_inject_gate=deep_inject_gate)
 
-    def guidance_eval(self, base_latents, t, gate, var):
-        """(loss, aux, grad) of the optimization variable ``var`` through the
-        truncated cond-only UNet (reference pipeline:946-973)."""
-        st, spec, hp, R = self.st, self.spec, self.hp, self.R
+    def guidance_eval(self, base_latents, samples, t, gate, var):
+        """(loss [n], aux, grad) of the optimization variable ``var`` [n, ...]
+        of the samples ``samples`` through the truncated cond-only UNet
+        (reference pipeline:946-973). The gradient is taken of the sum of
+        the samples' losses; nothing couples two samples, so each row is
+        its sample's own gradient."""
+        st, hp, R = self.st, self.hp, self.R
         agg_from = ("up",) if self.deep_mode else self.from_where
+        cond = self.take(self.cond, samples)
 
         def loss_fn(v):
             if self.deep_mode:
-                _eps, aux = self.unet_eps(base_latents, t, self.cond, self.capture, gate, deep_inject=v, truncate=True)
+                _eps, aux = self.unet_eps(base_latents, t, samples, cond, self.capture, gate, deep_inject=v, truncate=True)
             else:
-                _eps, aux = self.unet_eps(v, t, self.cond, self.capture, gate, truncate=True)
+                _eps, aux = self.unet_eps(v, t, samples, cond, self.capture, gate, truncate=True)
             maps = aggregate_cross_maps(aux["maps"], R, agg_from)
-            stats = compute_token_stats(maps, spec, hp, st.smooth_attentions, st.sigma, st.kernel_size)
-            total, _gs, gu, valid = compute_loss(stats, spec, hp, st.sub_prompt_avg_within)
-            _scaled, unscaled = per_token_losses(stats, spec, hp)
-            return total, gu, valid, unscaled, stats.probs, stats.smoothed, stats.col, stats.row, stats.max_attn
+            per_sample = []
+            for j, b in enumerate(samples):
+                spec = self.specs[b]
+                stats = compute_token_stats(maps[j], spec, hp, st.smooth_attentions, st.sigma, st.kernel_size)
+                total, _gs, gu, valid = compute_loss(stats, spec, hp, st.sub_prompt_avg_within)
+                _scaled, unscaled = per_token_losses(stats, spec, hp)
+                per_sample.append((total, gu, valid, unscaled, stats.probs, stats.smoothed, stats.col, stats.row,
+                                   stats.max_attn))
+            stacked = [torch.stack(field) for field in zip(*per_sample)]
+            return (stacked[0].sum(), *stacked)
 
         with torch.enable_grad():
             v = var.detach().requires_grad_(True)
             outs = checkpoint(loss_fn, v, use_reentrant=False) if st.remat_guidance_eval else loss_fn(v)
             (grad,) = torch.autograd.grad(outs[0], v)
-        total, gu, valid, unscaled, probs, smoothed, col, row, max_attn = (o.detach() for o in outs)
+        total, gu, valid, unscaled, probs, smoothed, col, row, max_attn = (o.detach() for o in outs[1:])
         aux = {
             "gu": gu,
             "valid": valid,
             "unscaled_tok": unscaled,
-            "attn_sum": probs.sum(dim=(0, 1)),
+            "attn_sum": probs.sum(dim=(1, 2)),
             "col": col,
             "row": row,
             "max_attn": max_attn,
@@ -249,212 +318,279 @@ class _Loop:
             aux["probs16"] = probs.half()
         return total, aux, grad
 
-    def zero_aux(self, device):
+    def zero_aux(self, n, device):
         K, R = K_TOKENS, self.R
-        z = torch.zeros(K, device=device)
+        z = torch.zeros(n, K, device=device)
         return {
-            "gu": torch.zeros(self.spec.n_groups, device=device),
-            "valid": torch.zeros(self.spec.n_groups, dtype=torch.bool, device=device),
+            "gu": torch.zeros(n, self.specs[0].n_groups, device=device),
+            "valid": torch.zeros(n, self.specs[0].n_groups, dtype=torch.bool, device=device),
             "unscaled_tok": z,
             "attn_sum": z,
             "col": z,
             "row": z,
             "max_attn": z,
-            "maps": torch.zeros(R, R, K, device=device),
+            "maps": torch.zeros(n, R, R, K, device=device),
         }
 
     def eval_buffers(self, latents):
-        dev = latents.device
+        n, dev = latents.shape[0], latents.device
         K, R, R_sub = K_TOKENS, self.R, self.R_sub
-        bufs = {
-            "eval_unscaled": torch.zeros(R_sub, K, device=dev),
-            "eval_mask": torch.zeros(R_sub, dtype=torch.bool, device=dev),
-            "eval_maps": torch.zeros((R_sub, R, R, K) if self.st.capture_eval_maps else (1, 1, 1, 1), dtype=torch.float16, device=dev),
+        return {
+            "eval_unscaled": torch.zeros(n, R_sub, K, device=dev),
+            "eval_mask": torch.zeros(n, R_sub, dtype=torch.bool, device=dev),
+            "eval_maps": torch.zeros((n, R_sub, R, R, K) if self.st.capture_eval_maps else (n, 1, 1, 1, 1),
+                                     dtype=torch.float16, device=dev),
             "eval_latents": torch.zeros(
-                (R_sub,) + tuple(latents.shape[1:]) if self.st.capture_eval_latents else (1, 1, 1, 1),
+                (n, R_sub) + tuple(latents.shape[1:]) if self.st.capture_eval_latents else (n, 1, 1, 1, 1),
                 dtype=torch.float16, device=dev,
             ),
         }
-        return bufs
 
     # --- one step's guidance ----------------------------------------------
-    def guided_update(self, latents, i, t, gate):
-        """Refinement + gradient update of one step (pipeline:961-1007).
-        Returns (latents, deep, did_update, entered_refine, loss, aux,
-        refine_iters, n_evals, eval buffers)."""
+    def guided_update(self, latents, samples, i, t, gate):
+        """Refinement + gradient update of one step (pipeline:961-1007) for
+        the samples ``samples``, each with its own phase machine. Returns
+        (latents, deep, did_update, entered_refine, loss, aux, refine_iters,
+        n_evals, eval buffers), the lists one entry per sample."""
         st, hp, arrays = self.st, self.hp, self.arrays
+        PH_EVAL0, PH_REFINE, PH_FINAL, PH_DONE = self.PH_EVAL0, self.PH_REFINE, self.PH_FINAL, self.PH_DONE
         step_size = float(arrays.step_sizes[i])
         lr = step_size * 200.0 if self.deep_mode else step_size
         thresh_i = float(arrays.thresholds[i])
+        n, dev = latents.shape[0], latents.device
         bufs = self.eval_buffers(latents)
 
         if self.deep_mode:
             # fresh capture of the bottleneck (reference pipeline:704)
-            _eps0, cap0 = self.unet_eps(latents, t, self.cond, EMPTY_CAPTURE, gate, truncate=True)
+            cond = self.take(self.cond, samples)
+            _eps0, cap0 = self.unet_eps(latents, t, samples, cond, EMPTY_CAPTURE, gate, truncate=True)
             var = cap0["deep"]
         else:
             var = latents
 
-        phase, n_ref, n_ev, v = self.PH_EVAL0, 0, 0, var
-        needs, aux0 = False, None
-        l_fin, g_fin, a_fin = torch.zeros((), device=latents.device), torch.zeros_like(var), self.zero_aux(latents.device)
-        vel = torch.zeros_like(var)
+        phase, n_ref, n_ev, needs = [PH_EVAL0] * n, [0] * n, [0] * n, [False] * n
+        v, vel = var, torch.zeros_like(var)
+        l_fin, g_fin, a_fin = torch.zeros(n, device=dev), torch.zeros_like(var), self.zero_aux(n, dev)
+        aux0 = None
         max_ref = st.max_refinement_steps
-        while phase != self.PH_DONE:
-            n_ev += 1
-            loss, aux, grad = self.guidance_eval(latents, t, gate, v)
-            first, refining, final = phase == self.PH_EVAL0, phase == self.PH_REFINE, phase == self.PH_FINAL
-            met = bool(meets_threshold(aux["gu"], aux["valid"], thresh_i))
+        while True:
+            live = [j for j in range(n) if phase[j] != PH_DONE]
+            if not live:
+                break
+            loss, aux, grad = self.guidance_eval(self.take(latents, live), [samples[j] for j in live], t, gate,
+                                                 self.take(v, live))
+            met = meets_threshold(aux["gu"], aux["valid"], thresh_i).tolist()
+            if aux0 is None:  # every sample's first eval is this one
+                aux0 = aux
 
             if st.diag_level:
-                slot = 0 if first else (self.R_sub - 1 if final else n_ref + 1)
-                bufs["eval_unscaled"][slot] = aux["unscaled_tok"]
-                bufs["eval_mask"][slot] = True
+                slots = [0 if phase[j] == PH_EVAL0 else (self.R_sub - 1 if phase[j] == PH_FINAL else n_ref[j] + 1)
+                         for j in live]
+                at = (self._index(live), self._index(slots))
+                bufs["eval_unscaled"] = bufs["eval_unscaled"].index_put(at, aux["unscaled_tok"])
+                bufs["eval_mask"] = bufs["eval_mask"].index_put(at, torch.ones((), dtype=torch.bool, device=dev))
                 if st.capture_eval_maps:
-                    bufs["eval_maps"][slot] = aux["probs16"]
+                    bufs["eval_maps"] = bufs["eval_maps"].index_put(at, aux["probs16"])
                 if st.capture_eval_latents:
-                    cur = latents if self.deep_mode else v
-                    bufs["eval_latents"][slot] = cur[0].half()
+                    cur = self.take(latents if self.deep_mode else v, live)
+                    bufs["eval_latents"] = bufs["eval_latents"].index_put(at, cur.half())
 
-            if first:
-                needs, aux0 = not met, aux
-            if refining:
+            # refining samples take their step; k indexes this eval's rows
+            refine = [k for k, j in enumerate(live) if phase[j] == PH_REFINE]
+            if refine:
+                rows = [live[k] for k in refine]
+                g = self.take(grad, refine)
                 if hp.use_optimizer:
-                    v, vel = sgd_momentum_update(v, grad, vel, lr)
+                    v_new, vel_new = sgd_momentum_update(self.take(v, rows), g, self.take(vel, rows), lr)
+                    vel = self.put(vel, rows, vel_new)
                 else:
-                    v = plain_update(v, grad, lr, loss)
-                n_ref += 1
-            if (first and met) or final:
-                l_fin, g_fin, a_fin = loss, grad, aux
+                    v_new = plain_update(self.take(v, rows), g, lr, self.take(loss, refine))
+                v = self.put(v, rows, v_new)
+                for j in rows:
+                    n_ref[j] += 1
+            # the eval that stands for the step: eval0 when it meets the
+            # threshold, else the final fresh forward
+            fin = [k for k, j in enumerate(live) if (phase[j] == PH_EVAL0 and met[k]) or phase[j] == PH_FINAL]
+            if fin:
+                rows = [live[k] for k in fin]
+                l_fin = self.put(l_fin, rows, self.take(loss, fin))
+                g_fin = self.put(g_fin, rows, self.take(grad, fin))
+                a_fin = self.put(a_fin, rows, self.take({key: aux[key] for key in a_fin}, fin))
 
             # refine while the latest eval misses the threshold and budget
             # remains (pipeline:501, 560-562), then one final fresh forward
-            if first:
-                phase = self.PH_DONE if met else (self.PH_REFINE if max_ref > 0 else self.PH_FINAL)
-            elif final:
-                phase = self.PH_DONE
-            else:
-                phase = self.PH_FINAL if (met or n_ref >= max_ref) else self.PH_REFINE
+            for k, j in enumerate(live):
+                n_ev[j] += 1
+                if phase[j] == PH_EVAL0:
+                    needs[j] = not met[k]
+                    phase[j] = PH_DONE if met[k] else (PH_REFINE if max_ref > 0 else PH_FINAL)
+                elif phase[j] == PH_FINAL:
+                    phase[j] = PH_DONE
+                else:
+                    phase[j] = PH_FINAL if (met[k] or n_ref[j] >= max_ref) else PH_REFINE
 
         # update gate (pipeline:998-1007): the LAST threshold value and the
         # STALE pre-refinement losses decide; the post-refinement gradient
         # is applied
-        not_met_last = not bool(meets_threshold(aux0["gu"], aux0["valid"], st.last_threshold))
-        apply = bool(arrays.update_gate[i]) and not_met_last
-        var2 = plain_update(v, g_fin, lr, l_fin) if apply else v
-        did_update = needs or apply
+        apply = [False] * n
+        if arrays.update_gate[i]:
+            met_last = meets_threshold(aux0["gu"], aux0["valid"], st.last_threshold).tolist()
+            apply = [not m for m in met_last]
+        rows = [j for j in range(n) if apply[j]]
+        var2 = v
+        if rows:
+            var2 = self.put(v, rows, plain_update(self.take(v, rows), self.take(g_fin, rows), lr, self.take(l_fin, rows)))
+        did_update = [a or b for a, b in zip(needs, apply)]
         if self.deep_mode:
             return latents, var2, did_update, needs, l_fin, a_fin, n_ref, n_ev, bufs
         return var2, None, did_update, needs, l_fin, a_fin, n_ref, n_ev, bufs
 
-    def cfg_eps(self, latents, t, gate, deep_inject=None):
+    def cfg_eps(self, latents, samples, t, gate, deep_inject=None, deep_inject_gate=None):
         g = self.st.guidance_scale
+        cond = self.take(self.cond, samples)
         if g > 1.0:
-            pair = torch.cat([latents, latents], dim=0)
-            ctx = torch.cat([self.uncond, self.cond], dim=0)
-            eps_pair, _ = self.unet_eps(pair, t, ctx, EMPTY_CAPTURE, gate, deep_inject)
-            eps_u, eps_c = eps_pair[0:1], eps_pair[1:2]
+            # rows: each sample's (uncond, cond) pair in turn
+            n = latents.shape[0]
+            pair = latents.repeat_interleave(2, dim=0)
+            ctx = torch.stack([self.take(self.uncond, samples), cond], dim=1).flatten(0, 1)
+            eps_pair, _ = self.unet_eps(pair, t, samples, ctx, EMPTY_CAPTURE, gate, deep_inject,
+                                        deep_inject_gate=deep_inject_gate)
+            eps_pair = eps_pair.reshape(n, 2, *eps_pair.shape[1:])
+            eps_u, eps_c = eps_pair[:, 0], eps_pair[:, 1]
             return eps_u + g * (eps_c - eps_u)
-        eps, _ = self.unet_eps(latents, t, self.cond, EMPTY_CAPTURE, gate, deep_inject)
+        eps, _ = self.unet_eps(latents, t, samples, cond, EMPTY_CAPTURE, gate, deep_inject,
+                               deep_inject_gate=deep_inject_gate)
         return eps
 
-    def one_pass(self, latents, i, t, gate, r):
-        """guidance + CFG + scheduler for one recursion iteration."""
+    def one_pass(self, latents, samples, i, t, gate, r) -> _Pass:
+        """guidance + CFG + scheduler for one recursion iteration of the
+        samples ``samples``."""
+        n, dev = latents.shape[0], latents.device
         if self.guided and (self.arrays.guidance_needed[i] or not self.st.skip_inert_guidance_passes):
-            lat2, deep, did_update, entered, loss, aux, ri, nev, bufs = self.guided_update(latents, i, t, gate)
+            lat2, deep, did_update, entered, loss, aux, ri, nev, bufs = self.guided_update(latents, samples, i, t, gate)
         else:
-            lat2, deep, did_update, entered = latents, None, False, False
-            loss, aux, ri, nev = torch.zeros((), device=latents.device), self.zero_aux(latents.device), 0, 0
+            lat2, deep, did_update, entered = latents, None, [False] * n, [False] * n
+            loss, aux, ri, nev = torch.zeros(n, device=dev), self.zero_aux(n, dev), [0] * n, [0] * n
             bufs = self.eval_buffers(latents)
-        inject = deep if (self.deep_mode and entered) else None
-        eps = self.cfg_eps(lat2, t, gate, inject)
-        eta_noise = self.noise("eta", i, r) if self.st.eta > 0.0 else None
+        # deep mode injects the optimized features only where refinement ran
+        inject, inject_gate = None, None
+        if self.deep_mode and any(entered):
+            inject = deep
+            if not all(entered):
+                inject_gate = torch.tensor(entered, device=dev)
+        eps = self.cfg_eps(lat2, samples, t, gate, inject, inject_gate)
+        eta_noise = torch.cat([self.noise[b]("eta", i, r) for b in samples]) if self.st.eta > 0.0 else None
         prev, x0 = ddim_step(self.sched, i, eps.float(), lat2.float(), eta=self.st.eta, noise=eta_noise)
-        return prev.to(latents.dtype), x0, did_update, loss, aux, ri, nev, bufs
+        return _Pass(prev.to(latents.dtype), x0, loss, aux, bufs, did_update, ri, nev)
 
     # --- the step loop -------------------------------------------------------
     def run(self, latents0):
         st, hp = self.st, self.hp
-        recurse_steps = max(int(hp.recurse_steps), 1)
+        B = latents0.shape[0]
+        recurse_steps = max(int(hp.recurse_steps), 1) if self.guided else 1
         latents = latents0
         rows = []
         for i in range(st.num_steps):
             t = self.timesteps[i]
             gate = float(self.arrays.pww_gates[i])
-            if recurse_steps > 1 and self.guided:
-                r, done, work, n_evals = 0, False, latents, 0
-                while not done and r < recurse_steps:
-                    prev, x0, did_update, loss, aux, refine_iters, nev, bufs = self.one_pass(work, i, t, gate, r)
-                    n_evals += nev
-                    done = i > hp.recurse_until or not did_update or r + 1 >= recurse_steps
-                    if not done:
-                        work = renoise(self.sched, i, prev, self.noise("renoise", i, r))
-                    r += 1
-                recursions = r
-            else:
-                prev, x0, did_update, loss, aux, refine_iters, n_evals, bufs = self.one_pass(latents, i, t, gate, None)
-                recursions = 1
-            rows.append(self._diag_row(latents, prev, x0, loss, aux, refine_iters, n_evals, did_update, recursions, bufs))
-            latents = prev.to(latents0.dtype)
+            # re-noise recursion ("time travel"): a sample re-runs the step
+            # while its update ran, up to recurse_steps passes
+            active, work, r, out = list(range(B)), latents, 0, None
+            n_evals, recursions = [0] * B, [0] * B
+            while active:
+                p = self.one_pass(work, active, i, t, gate, r if recurse_steps > 1 else None)
+                for j, b in enumerate(active):
+                    n_evals[b] += p.n_evals[j]
+                    recursions[b] = r + 1
+                out = p if out is None else self._merge(out, active, p)
+                again = [j for j in range(len(active))
+                         if i <= hp.recurse_until and p.did_update[j] and r + 1 < recurse_steps]
+                if again:
+                    draws = torch.cat([self.noise[active[j]]("renoise", i, r) for j in again])
+                    work = renoise(self.sched, i, self.take(p.prev, again), draws)
+                active = [active[j] for j in again]
+                r += 1
+            rows.append(self._diag_row(latents, out, n_evals, recursions))
+            latents = out.prev.to(latents0.dtype)
         return latents, self._stack(rows)
 
-    def _diag_row(self, latents, prev, x0, loss, aux, refine_iters, n_evals, did_update, recursions, bufs):
+    def _merge(self, out: _Pass, samples, p: _Pass) -> _Pass:
+        """``out`` with the rows of ``samples`` taken from the later pass ``p``."""
+        lists = {}
+        for name in ("did_update", "refine_iters", "n_evals"):
+            merged = list(getattr(out, name))
+            for j, b in enumerate(samples):
+                merged[b] = getattr(p, name)[j]
+            lists[name] = merged
+        return _Pass(
+            prev=self.put(out.prev, samples, p.prev),
+            x0=self.put(out.x0, samples, p.x0),
+            loss=self.put(out.loss, samples, p.loss),
+            aux=self.put(out.aux, samples, p.aux),
+            bufs=self.put(out.bufs, samples, p.bufs),
+            **lists,
+        )
+
+    def _diag_row(self, latents, out: _Pass, n_evals, recursions):
         row = {
-            "total_loss": loss,
-            "group_unscaled": aux["gu"],
-            "refine_iters": refine_iters,
+            "total_loss": out.loss,
+            "group_unscaled": out.aux["gu"],
+            "refine_iters": out.refine_iters,
             "n_evals": n_evals,
-            "did_update": did_update,
+            "did_update": out.did_update,
             "recursions": recursions,
         }
         if not self.st.diag_level:
             return row
-        lat = prev.float()
+        aux = out.aux
+        lat = out.prev.float()
         absl = lat.abs()
-        C = lat.shape[-1]
+        B, C = lat.shape[0], lat.shape[-1]
         row.update(
             per_token_unscaled=aux["unscaled_tok"],
             token_attn_sum=aux["attn_sum"],
             col=aux["col"],
             row=aux["row"],
             max_attn=aux["max_attn"],
-            latent_mean=lat.mean(dim=(0, 1, 2)),
-            latent_std=absl.std(dim=(0, 1, 2), correction=0),
-            latent_p99=torch.quantile(absl.reshape(-1, C), 0.99, dim=0),
-            x0_pred=x0[0].half(),
-            latent_in=latents[0].half(),
+            latent_mean=lat.mean(dim=(1, 2)),
+            latent_std=absl.std(dim=(1, 2), correction=0),
+            latent_p99=torch.quantile(absl.reshape(B, -1, C), 0.99, dim=1),
+            x0_pred=out.x0.half(),
+            latent_in=latents.half(),
             maps=aux["maps"].half(),
-            **bufs,
+            **out.bufs,
         )
         return row
 
     def _stack(self, rows) -> StepDiag:
+        """Per-step rows -> StepDiag with every field [B, S, ...]."""
         S = len(rows)
+        B = len(rows[0]["n_evals"])
         out = {}
         for name in ("refine_iters", "n_evals", "recursions"):
-            out[name] = np.asarray([r[name] for r in rows], np.int32)
-        out["did_update"] = np.asarray([r["did_update"] for r in rows], bool)
+            out[name] = np.asarray([r[name] for r in rows], np.int32).T.copy()
+        out["did_update"] = np.asarray([r["did_update"] for r in rows], bool).T.copy()
         tensor_names = [k for k in rows[0] if k not in out]
         # one device->host copy per field
         for name in tensor_names:
-            out[name] = torch.stack([r[name] for r in rows]).cpu().numpy()
+            out[name] = torch.stack([r[name] for r in rows], dim=1).cpu().numpy()
         if not self.st.diag_level:
             unit = {
-                "per_token_unscaled": np.zeros((S, 1), np.float32),
-                "token_attn_sum": np.zeros((S, 1), np.float32),
-                "col": np.zeros((S, 1), np.float32),
-                "row": np.zeros((S, 1), np.float32),
-                "max_attn": np.zeros((S, 1), np.float32),
-                "latent_mean": np.zeros((S, 1), np.float32),
-                "latent_std": np.zeros((S, 1), np.float32),
-                "latent_p99": np.zeros((S, 1), np.float32),
-                "x0_pred": np.zeros((S, 1, 1, 1), np.float16),
-                "latent_in": np.zeros((S, 1, 1, 1), np.float16),
-                "maps": np.zeros((S, 1, 1, 1), np.float16),
-                "eval_unscaled": np.zeros((S, 1, 1), np.float32),
-                "eval_mask": np.zeros((S, 1), bool),
-                "eval_maps": np.zeros((S, 1, 1, 1, 1), np.float16),
-                "eval_latents": np.zeros((S, 1, 1, 1, 1), np.float16),
+                "per_token_unscaled": np.zeros((B, S, 1), np.float32),
+                "token_attn_sum": np.zeros((B, S, 1), np.float32),
+                "col": np.zeros((B, S, 1), np.float32),
+                "row": np.zeros((B, S, 1), np.float32),
+                "max_attn": np.zeros((B, S, 1), np.float32),
+                "latent_mean": np.zeros((B, S, 1), np.float32),
+                "latent_std": np.zeros((B, S, 1), np.float32),
+                "latent_p99": np.zeros((B, S, 1), np.float32),
+                "x0_pred": np.zeros((B, S, 1, 1, 1), np.float16),
+                "latent_in": np.zeros((B, S, 1, 1, 1), np.float16),
+                "maps": np.zeros((B, S, 1, 1, 1), np.float16),
+                "eval_unscaled": np.zeros((B, S, 1, 1), np.float32),
+                "eval_mask": np.zeros((B, S, 1), bool),
+                "eval_maps": np.zeros((B, S, 1, 1, 1, 1), np.float16),
+                "eval_latents": np.zeros((B, S, 1, 1, 1, 1), np.float16),
             }
             out.update(unit)
         return StepDiag(**out)

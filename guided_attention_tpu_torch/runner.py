@@ -1,20 +1,22 @@
 """GuidedAttentionPipeline: the user-facing pipeline object.
 
-Counterpart of the single-sample path of the JAX package's ``runner.py``:
-the same keyword surface and validation, a prepare cache keyed by every
-option, decode to uint8 on the device, and ``PipelineOutput``.
+Counterpart of the JAX package's ``runner.py`` on one GPU: ``dispatch``
+(one image) and ``dispatch_batch`` / ``generate_batch`` (one image per seed,
+one prompt for all or one per seed), with the same keyword surface and
+validation, a prepare cache keyed by every option, decode to uint8 on the
+device, and ``PipelineOutput``.
 
-Seed semantics: the initial latents and every re-noise / eta draw come, in
-loop order, from one ``torch.Generator`` on the model's device seeded with
-the seed. The JAX package draws them from ``jax.random``, so the same seed
-gives a different image in the two packages; ``dispatch(latents=...,
-noise=...)`` hands in explicit draws instead.
+Seed semantics: a sample's initial latents and every re-noise / eta draw
+come, in loop order, from one ``torch.Generator`` on the model's device
+seeded with its seed, in a batch as alone. The JAX package draws them from
+``jax.random``, so the same seed gives a different image in the two
+packages; ``latents=`` and ``noise=`` hand in explicit draws instead.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,9 +24,9 @@ import torch
 from guided_attention_tpu_torch.annotation import Annotation, parse_prompt
 from guided_attention_tpu_torch.config import HyperParams
 from guided_attention_tpu_torch.guidance.custom import CustomLossRegistry, default_registry
-from guided_attention_tpu_torch.guidance.spec import GuidanceSpec, build_guidance_spec
+from guided_attention_tpu_torch.guidance.spec import GuidanceSpec, build_guidance_spec, stack_specs
 from guided_attention_tpu_torch.models.bundle import StableDiffusion
-from guided_attention_tpu_torch.pipeline import GenStatics, NoiseSource, StepDiag, generate, make_step_arrays
+from guided_attention_tpu_torch.pipeline import GenStatics, NoiseSource, StepDiag, generate_batch, make_step_arrays
 from guided_attention_tpu_torch.schedulers.ddim import make_ddim_schedule
 
 
@@ -69,29 +71,45 @@ class PipelineOutput:
 
 
 @dataclasses.dataclass
+class PendingBatch:
+    """A batch generation whose results still lie on the device;
+    ``result()`` copies them to the host once and splits them per sample."""
+
+    _img_u8: Optional[torch.Tensor]  # [B, H, W, 3] uint8
+    _latents: torch.Tensor  # [B, h, w, C]
+    _diags: StepDiag  # every field [B, S, ...]
+    per_out: List[Tuple[str, List[Annotation], GuidanceSpec]]  # per sample (prompt, annotations, spec)
+    seeds: List[int]
+
+    def result(self) -> List[PipelineOutput]:
+        u8 = None if self._img_u8 is None else self._img_u8.cpu().numpy()
+        # numpy has no bfloat16: bf16 latents arrive as float32 (exact)
+        lat = (self._latents.float() if self._latents.dtype == torch.bfloat16 else self._latents).cpu().numpy()
+        outputs = []
+        for b, (prompt, annotations, spec) in enumerate(self.per_out):
+            # copies: a view would alias every output to one batch buffer
+            img = None if u8 is None else u8[b : b + 1].copy()
+            outputs.append(PipelineOutput(
+                images=None if img is None else img.astype(np.float32) / 255.0,
+                latents=lat[b : b + 1].copy(),
+                diagnostics=self._diags.sample(b),
+                spec=spec,
+                prompt=prompt,
+                annotations=annotations,
+                images_u8=img,
+            ))
+        return outputs
+
+
+@dataclasses.dataclass
 class PendingOutput:
     """A generation whose results still lie on the device; ``result()``
     copies them to the host once."""
 
-    _img_u8: Optional[torch.Tensor]
-    _latents: torch.Tensor
-    _diags: StepDiag
-    spec: GuidanceSpec
-    prompt: str
-    annotations: List[Annotation]
+    _batch: PendingBatch
 
     def result(self) -> PipelineOutput:
-        u8 = None if self._img_u8 is None else self._img_u8.cpu().numpy()
-        return PipelineOutput(
-            images=None if u8 is None else u8.astype(np.float32) / 255.0,
-            # numpy has no bfloat16: bf16 latents arrive as float32 (exact)
-            latents=(self._latents.float() if self._latents.dtype == torch.bfloat16 else self._latents).cpu().numpy(),
-            diagnostics=self._diags,
-            spec=self.spec,
-            prompt=self.prompt,
-            annotations=self.annotations,
-            images_u8=u8,
-        )
+        return self._batch.result()[0]
 
 
 def _hp_key(hp: HyperParams):
@@ -185,6 +203,7 @@ class GuidedAttentionPipeline:
         self.sd = sd
         self.registry = registry or default_registry()
         self._prepare_cache: Dict[Any, Any] = {}
+        self._stack_cache: Dict[Any, Any] = {}  # stacked (spec, emb) per prompt set
         self._registry_version = 0
 
     def register_custom_loss(self, name: str, loss) -> None:
@@ -309,19 +328,116 @@ class GuidedAttentionPipeline:
         initial latents and ``noise(kind, i, r)`` the seeded re-noise / eta
         draws."""
         opts = PrepareOptions.from_locals(locals())
-        hp, prompt, annotations, spec, statics, sched, arrays, emb = self._prepare(opts)
-        cfg = self.sd.config
-        dev = self.sd.device
-        shape = (1, cfg.latent_size, cfg.latent_size, cfg.unet.in_channels)
-        gen = torch.Generator(device=dev).manual_seed(_mask_seed(seed))
-        lat0 = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(cfg.unet.dtype)
-        if latents is not None:
-            lat0 = torch.as_tensor(np.asarray(latents) if not torch.is_tensor(latents) else latents, device=dev).clone()
-        if noise is None:
-            noise = GeneratorNoise(gen, shape, dev)
-        final, diags = generate(self.sd, statics, hp, emb, lat0, spec, sched, arrays, noise)
-        img_u8 = self.sd.decode_latents_u8(final) if decode else None
-        return PendingOutput(img_u8, final, diags, spec, prompt, annotations)
+        return PendingOutput(self._dispatch(opts, [seed], None, latents, None if noise is None else [noise], decode))
 
     def __call__(self, *args, **kwargs) -> PipelineOutput:
         return self.dispatch(*args, **kwargs).result()
+
+    def _prepare_batch(self, opts: PrepareOptions, seeds: Sequence[int], meta_prompts: Optional[Sequence[str]]):
+        """Prepare every sample (one prompt for all, or ``meta_prompts``, one
+        per seed) and stack the specs and embeddings along the batch axis;
+        the stacks are cached per prompt set (at most 16)."""
+        if len(seeds) == 0:
+            raise ValueError("seeds must hold at least one seed")
+        if meta_prompts is not None:
+            if opts.meta_prompt is not None or opts.prompt is not None or opts.annotations is not None:
+                raise TypeError("pass either meta_prompts (one per seed) or a single meta_prompt/prompt")
+            if len(meta_prompts) != len(seeds):
+                raise ValueError(f"meta_prompts has {len(meta_prompts)} entries for {len(seeds)} seeds")
+            prepared = [self._prepare(dataclasses.replace(opts, meta_prompt=mp)) for mp in meta_prompts]
+        else:
+            prepared = [self._prepare(opts)] * len(seeds)
+        hp, _prompt, _anns, _spec, statics, sched, arrays, _emb = prepared[0]
+        ck = opts.cache_key(self._registry_version)
+        stack_key = None if ck is None else (tuple(meta_prompts) if meta_prompts is not None else len(seeds), ck)
+        stacked = self._stack_cache.get(stack_key) if stack_key is not None else None
+        if stacked is None:
+            stacked = (stack_specs([p[3] for p in prepared]), torch.stack([p[7] for p in prepared]))
+            if stack_key is not None:
+                if len(self._stack_cache) >= 16:
+                    self._stack_cache.pop(next(iter(self._stack_cache)))
+                self._stack_cache[stack_key] = stacked
+        spec, emb = stacked
+        per_out = [(p[1], p[2], p[3]) for p in prepared]
+        return per_out, hp, spec, statics, sched, arrays, emb
+
+    def _dispatch(self, opts: PrepareOptions, seeds, meta_prompts, latents, noise, decode: bool) -> PendingBatch:
+        per_out, hp, spec, statics, sched, arrays, emb = self._prepare_batch(opts, seeds, meta_prompts)
+        cfg = self.sd.config
+        dev = self.sd.device
+        B = len(seeds)
+        shape = (1, cfg.latent_size, cfg.latent_size, cfg.unet.in_channels)
+        gens = [torch.Generator(device=dev).manual_seed(_mask_seed(s)) for s in seeds]
+        lat0 = torch.cat([torch.randn(shape, generator=g, device=dev, dtype=torch.float32) for g in gens])
+        lat0 = lat0.to(cfg.unet.dtype)
+        if latents is not None:
+            lat0 = torch.as_tensor(np.asarray(latents) if not torch.is_tensor(latents) else latents, device=dev).clone()
+            if tuple(lat0.shape) != (B,) + shape[1:]:
+                raise ValueError(f"latents must be {(B,) + shape[1:]}, got {tuple(lat0.shape)}")
+        if noise is None:
+            noise = [GeneratorNoise(g, shape, dev) for g in gens]
+        elif len(noise) != B:
+            raise ValueError(f"noise has {len(noise)} sources for {B} seeds")
+        final, diags = generate_batch(self.sd, statics, hp, emb, lat0, spec, sched, arrays, noise)
+        img_u8 = self.sd.decode_latents_u8(final) if decode else None
+        return PendingBatch(img_u8, final, diags, per_out, list(seeds))
+
+    def dispatch_batch(
+        self,
+        seeds: Sequence[int],
+        meta_prompt: Optional[str] = None,
+        meta_prompts: Optional[Sequence[str]] = None,
+        prompt: Optional[str] = None,
+        annotations: Optional[List[Annotation]] = None,
+        hp: Optional[HyperParams] = None,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 7.5,
+        max_iter_to_alter: int = 25,
+        attention_res: int = 16,
+        run_standard_sd: bool = False,
+        thresholds: Optional[Dict[int, float]] = None,
+        scale_factor: float = 20.0,
+        scale_range: Tuple[float, float] = (1.0, 0.5),
+        smooth_attentions: bool = True,
+        sigma: float = 0.5,
+        kernel_size: int = 3,
+        sd_2_1: bool = False,
+        only_update_on_threshold_steps: bool = True,
+        sub_prompt_avg_within: bool = False,
+        skip_inert_guidance_passes: bool = True,
+        diagnostic_level: int = 0,
+        negative_prompt: str = "",
+        latents=None,
+        decode: bool = True,
+        capture_eval_maps: bool = False,
+        capture_diagnostics: bool = True,
+        eta: float = 0.0,
+        capture_eval_latents: bool = False,
+        remat_guidance_eval: bool = False,
+        noise: Optional[Sequence[NoiseSource]] = None,
+    ) -> PendingBatch:
+        """Run one generation per seed as one batch on the device; the
+        results stay there until ``.result()``, which returns one
+        ``PipelineOutput`` per seed (the reference loops seeds serially,
+        run.py:97-98; BASELINE config 5: '8 seeds/batch multi-prompt
+        generation').
+
+        ``meta_prompts`` (one per seed) gives each sample its own prompt,
+        annotations and embedding; every prompt must produce the same
+        number of sub-prompt groups and identical custom-loss bindings
+        (``guidance.spec.stack_specs``). With ``meta_prompt`` (or
+        ``prompt``) every seed shares one prompt. Sample b equals the
+        one-sample ``dispatch`` of seed b and its prompt, up to the order of
+        floating-point operations (a batch runs other kernel shapes).
+
+        ``latents`` ([B, h, w, C]) and ``noise`` (one ``NoiseSource`` per
+        seed) replace the seeded draws. The JAX package's ``mesh`` (data
+        and tensor parallelism over devices) and ``trim_heavy_diags`` have
+        no counterpart here yet: one GPU runs the batch, and the full
+        diagnostics come back."""
+        opts = PrepareOptions.from_locals(locals())
+        return self._dispatch(opts, list(seeds), meta_prompts, latents, noise, decode)
+
+    def generate_batch(self, seeds: Sequence[int], **kwargs) -> List[PipelineOutput]:
+        """``dispatch_batch(seeds, ...).result()`` (same keyword surface)."""
+        return self.dispatch_batch(seeds, **kwargs).result()

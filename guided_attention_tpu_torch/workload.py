@@ -4,8 +4,15 @@ One guided 512x512 SD1.5 image: 50 DDIM steps, the two-object meta-prompt,
 default thresholds and hyperparameters, decoded to uint8, bf16 weights
 drawn at random from a seed (the compute is the full-width model's). A
 measurement runs ``WARMUP_SEED`` once, then times ``TIMED_SEED``.
+
+The batch path is the same generation for several samples at once
+(``GuidedAttentionPipeline.generate_batch``): ``BATCH_SEEDS``, B = 4, two
+seeds under each of the two ``BATCH_PROMPTS``, which bind the same two
+groups to other boxes (the JAX package's ``scripts/perf_batch.py``).
 """
 from __future__ import annotations
+
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -17,11 +24,14 @@ STEPS = 50
 WEIGHT_SEED = 0
 WARMUP_SEED = 99
 TIMED_SEED = 28
+BATCH_PROMPTS = (META_PROMPT, "a [robot:0,.1,.45,.5] and a [blue vase:.55,.4,.4,.5]")
+BATCH_SEEDS = (TIMED_SEED, TIMED_SEED, TIMED_SEED + 1, TIMED_SEED + 1)
 
 
-def create(device="cuda") -> GuidedAttentionPipeline:
-    """SD1.5 in bf16 at full width, random weights from ``WEIGHT_SEED``."""
-    sd = StableDiffusion.create("sd15", torch.bfloat16, device=device, seed=WEIGHT_SEED)
+def create(device="cuda", model: str = "sd15", dtype: torch.dtype = torch.bfloat16) -> GuidedAttentionPipeline:
+    """The preset (SD1.5 by default) in ``dtype`` at full width, random
+    weights from ``WEIGHT_SEED``."""
+    sd = StableDiffusion.create(model, dtype, device=device, seed=WEIGHT_SEED)
     return GuidedAttentionPipeline(sd)
 
 
@@ -29,3 +39,19 @@ def generate(pipe: GuidedAttentionPipeline, seed: int) -> PipelineOutput:
     """One guided image of the main path."""
     return pipe(meta_prompt=META_PROMPT, seed=seed, num_inference_steps=STEPS,
                 decode=True, capture_diagnostics=False)
+
+
+def batch_prompts(n: int) -> List[str]:
+    """``BATCH_PROMPTS`` in turn, one per sample."""
+    return [BATCH_PROMPTS[b % len(BATCH_PROMPTS)] for b in range(n)]
+
+
+def generate_batch(pipe: GuidedAttentionPipeline, seeds: Sequence[int] = BATCH_SEEDS,
+                   meta_prompts: Optional[Sequence[str]] = None, steps: int = STEPS, decode: bool = True,
+                   **kwargs) -> List[PipelineOutput]:
+    """One batch of the main path's generation, one image per seed, the
+    prompts ``batch_prompts`` unless ``meta_prompts`` names them; other
+    keywords go to ``generate_batch``."""
+    prompts = list(meta_prompts) if meta_prompts is not None else batch_prompts(len(seeds))
+    return pipe.generate_batch(list(seeds), meta_prompts=prompts, num_inference_steps=steps,
+                               decode=decode, capture_diagnostics=False, **kwargs)

@@ -73,7 +73,7 @@ def test_port_package_has_every_counterpart_module():
         "models.configs", "models.bundle", "models.convert", "models.tokenizer", "ops.attention",
         "ops.flash_attention", "schedulers.ddim", "guidance.spec", "guidance.smoothing",
         "guidance.losses", "guidance.custom", "ops.attention_variants", "runtime.flops",
-        "runtime.timing", "perf_attn_kernel",
+        "runtime.timing", "perf_attn_kernel", "workload", "profile", "perf_batch",
     ):
         assert want in names, want
     for src in ("flash_self_fwd.cu", "flash_self_bwd.cu", "cross_attention_map.cu", "flash_self_fwd_v1.cu",

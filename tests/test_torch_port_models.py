@@ -115,7 +115,7 @@ def test_truncated_eval_forward_equals_full(pair, inputs):
         lat = torch.from_numpy(inputs["lat"]).requires_grad_(True)
         eps, aux = tsd.unet(lat, 500, ctx, capture=capture, truncate=truncate)
         assert (eps is None) == truncate
-        stats = compute_token_stats(aggregate_cross_maps(aux["maps"], 8), spec, hp)
+        stats = compute_token_stats(aggregate_cross_maps(aux["maps"], 8)[0], spec, hp)
         total = compute_loss(stats, spec, hp)[0]
         (g,) = torch.autograd.grad(total, lat)
         return total.detach(), g, len(aux["maps"]["up_cross"])

@@ -15,7 +15,6 @@ import dataclasses
 import numpy as np
 import pytest
 import jax
-import jax.numpy as jnp
 import torch
 
 from guided_attention_tpu.config import HyperParams as JHP
@@ -25,7 +24,7 @@ from guided_attention_tpu_torch.config import HyperParams as THP
 from guided_attention_tpu_torch.models.bundle import StableDiffusion as TSD
 from guided_attention_tpu_torch.runner import GuidedAttentionPipeline as TPipe
 
-from torch_port_helpers import jax_micro_bundle
+from torch_port_helpers import assert_same_run, jax_draws, jax_micro_bundle
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -40,7 +39,6 @@ def _one_torch_thread():
 
 META = "a [robot:.6,.3,.4,.55] and a [vase:0,.3,.4,.55]"
 SEED = 1
-COUNTERS = ("n_evals", "refine_iters", "recursions", "did_update")
 
 
 @pytest.fixture(scope="module")
@@ -50,23 +48,6 @@ def pipes():
     tsd = TSD.create("micro", torch.float32, device="cpu")
     tsd.load_jax_params(jax.tree_util.tree_map(np.asarray, jsd.params))
     return jp, TPipe(tsd)
-
-
-def jax_draws(jp, seed):
-    """JAX's initial latents and a port noise source replaying its draws
-    (pipeline.py:586-606: fold_in(fold_in(key, i), r), eta stream 104729)."""
-    lat0, key_run = jp._derive_jit(jnp.uint32(seed))
-    lat0 = np.array(lat0)
-
-    def noise(kind, i, r):
-        k = jax.random.fold_in(key_run, i)
-        if r is not None:
-            k = jax.random.fold_in(k, r)
-        if kind == "eta":
-            k = jax.random.fold_in(k, 104729)
-        return torch.from_numpy(np.array(jax.random.normal(k, lat0.shape, jnp.float32)))
-
-    return lat0, noise
 
 
 @pytest.fixture(scope="module")
@@ -79,15 +60,6 @@ def runs(pipes):
     return jo, to, lat0, noise, kw
 
 
-def _assert_same_run(jo, to, lat_rtol=1e-4):
-    jd, td = jo.diagnostics, to.diagnostics
-    for f in COUNTERS:
-        np.testing.assert_array_equal(getattr(td, f), np.asarray(getattr(jd, f)), err_msg=f)
-    np.testing.assert_allclose(td.total_loss, np.asarray(jd.total_loss), atol=1e-4, rtol=0)
-    jl = np.asarray(jo.latents, np.float32)
-    np.testing.assert_allclose(to.latents, jl, atol=lat_rtol * float(np.abs(jl).max()), rtol=0)
-
-
 def test_whole_slice_matches_jax(runs):
     jo, to, _lat0, _noise, _kw = runs
     d = to.diagnostics
@@ -95,7 +67,7 @@ def test_whole_slice_matches_jax(runs):
     np.testing.assert_array_equal(d.refine_iters, [10, 0, 10, 0])
     np.testing.assert_array_equal(d.recursions, [3, 1, 3, 1])
     np.testing.assert_array_equal(d.n_evals, [36, 0, 36, 0])
-    _assert_same_run(jo, to)
+    assert_same_run(jo, to)
     ju = np.round(np.asarray(jo.images) * 255).astype(int)
     assert to.images_u8.dtype == np.uint8 and to.images_u8.shape == (1, 128, 128, 3)
     assert np.abs(ju - to.images_u8.astype(int)).max() <= 1
@@ -126,7 +98,7 @@ def test_flash_route_equals_plain_route(pipes, runs):
         fo = tp(latents=lat0, noise=noise, **kw)
     finally:
         unet.config = cfg
-    _assert_same_run(to, fo, lat_rtol=1e-5)
+    assert_same_run(to, fo, lat_rtol=1e-5)
 
 
 def test_standard_sd_with_eta_matches_jax(pipes):
@@ -136,7 +108,7 @@ def test_standard_sd_with_eta_matches_jax(pipes):
     kw = dict(meta_prompt=META, seed=3, num_inference_steps=3, run_standard_sd=True, eta=0.5, capture_diagnostics=False)
     jo = jp(latents=lat0, **kw)
     to = tp(latents=lat0, noise=noise, **kw)
-    _assert_same_run(jo, to)
+    assert_same_run(jo, to)
 
 
 def test_deep_mode_with_optimizer_matches_jax(pipes):
@@ -148,7 +120,7 @@ def test_deep_mode_with_optimizer_matches_jax(pipes):
     jo = jp(latents=lat0, hp=JHP(optimize_deep_latent=True, use_optimizer=True, thresholds={0: 0.0}, recurse_steps=1), **kw)
     to = tp(latents=lat0, noise=noise, hp=THP(optimize_deep_latent=True, use_optimizer=True, thresholds={0: 0.0}, recurse_steps=1), **kw)
     np.testing.assert_array_equal(to.diagnostics.refine_iters, [10, 0])
-    _assert_same_run(jo, to)
+    assert_same_run(jo, to)
 
 
 def test_seeded_runs_are_deterministic_and_seed_sensitive(pipes):
@@ -173,7 +145,7 @@ def test_remat_and_eval_capture_options(pipes, runs):
     _jp, tp = pipes
     _jo, to, lat0, noise, kw = runs
     out = tp(latents=lat0, noise=noise, remat_guidance_eval=True, capture_eval_maps=True, capture_eval_latents=True, **kw)
-    _assert_same_run(to, out, lat_rtol=1e-5)
+    assert_same_run(to, out, lat_rtol=1e-5)
     d = out.diagnostics
     assert d.eval_maps.shape == (4, 12, 16, 16, 77)
     assert d.eval_latents.shape == (4, 12, 16, 16, 4)

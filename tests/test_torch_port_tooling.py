@@ -18,6 +18,7 @@
   CUDA sources.
 """
 import importlib.util
+import json
 import os
 import re
 import sys
@@ -32,7 +33,7 @@ from jax.experimental.pallas import tpu as pltpu
 from guided_attention_tpu.models.configs import get_config as jax_get_config
 from guided_attention_tpu.runtime import flops as jflops
 
-from guided_attention_tpu_torch import perf_attn_kernel
+from guided_attention_tpu_torch import perf_attn_kernel, perf_batch
 from guided_attention_tpu_torch.models.configs import get_config
 from guided_attention_tpu_torch.ops import attention_variants as av
 from guided_attention_tpu_torch.ops import flash_attention as fa
@@ -247,3 +248,19 @@ def test_microbench_needs_a_card():
         pytest.skip("this host has a CUDA device")
     with pytest.raises(RuntimeError, match="NVIDIA GPU"):
         perf_attn_kernel.run(reps=1)
+
+
+def test_perf_batch_drives_on_cpu(tmp_path):
+    """``python -m guided_attention_tpu_torch.perf_batch`` at micro on the
+    CPU, batch 2 of the two batch prompts, 2 steps: a warm-up and one timed
+    batch, its row printed and written; the device metrics read as not
+    measured."""
+    out = tmp_path / "perf_batch.json"
+    rows = perf_batch.main(["--device", "cpu", "--model", "micro", "--steps", "2", "--reps", "1", "--multi",
+                            "--out", str(out), "2"])
+    (row,) = rows
+    assert (row["batch"], row["multi_prompt"], row["steps"], len(row["walls_s"])) == (2, True, 2, 1)
+    assert row["s_per_image"] == pytest.approx(row["s_per_batch"] / 2)
+    assert row["mfu"] is None and row["peak_mem_gib"] is None and row["card"] == "cpu"
+    assert row["unet_tflop_per_batch"] > 0 and all(n > 0 for n in row["n_evals_per_sample"])
+    assert json.loads(out.read_text().splitlines()[0]) == row

@@ -1,5 +1,7 @@
 """Shared by the port's parity tests: the JAX package's micro bundle with
-parameters drawn by numpy from a seed.
+parameters drawn by numpy from a seed; JAX's initial latents and re-noise
+draws for a seed (``jax_draws``), to hand to the port; and the contract two
+runs are held to (``assert_same_run``).
 
 ``StableDiffusion.create`` jits the models' init functions, which costs
 about 40 s of XLA:CPU compile in every test process. Here the parameter
@@ -11,6 +13,7 @@ scale that lands in the wrong place on the port's side changes the result.
 import numpy as np
 import jax
 import jax.numpy as jnp
+import torch
 
 from guided_attention_tpu.models.bundle import StableDiffusion
 from guided_attention_tpu.models.clip import CLIPTextModel
@@ -52,3 +55,34 @@ def jax_micro_bundle(seed: int = 0) -> StableDiffusion:
         lambda path, leaf: jnp.asarray(_draw(rng, path[-1].key, leaf.shape), jnp.float32), shapes
     )
     return StableDiffusion(cfg, unet, clip, vae, load_tokenizer(None), params)
+
+
+def jax_draws(jp, seed):
+    """JAX's initial latents and a port noise source replaying its draws
+    (pipeline.py:586-606: fold_in(fold_in(key, i), r), eta stream 104729)."""
+    lat0, key_run = jp._derive_jit(jnp.uint32(seed))
+    lat0 = np.array(lat0)
+
+    def noise(kind, i, r):
+        k = jax.random.fold_in(key_run, i)
+        if r is not None:
+            k = jax.random.fold_in(k, r)
+        if kind == "eta":
+            k = jax.random.fold_in(k, 104729)
+        return torch.from_numpy(np.array(jax.random.normal(k, lat0.shape, jnp.float32)))
+
+    return lat0, noise
+
+
+COUNTERS = ("n_evals", "refine_iters", "recursions", "did_update")
+
+
+def assert_same_run(jo, to, lat_rtol=1e-4):
+    """Counters bit for bit, the losses within 1e-4 absolute, the final
+    latents within ``lat_rtol`` of their largest magnitude."""
+    jd, td = jo.diagnostics, to.diagnostics
+    for f in COUNTERS:
+        np.testing.assert_array_equal(getattr(td, f), np.asarray(getattr(jd, f)), err_msg=f)
+    np.testing.assert_allclose(td.total_loss, np.asarray(jd.total_loss), atol=1e-4, rtol=0)
+    jl = np.asarray(jo.latents, np.float32)
+    np.testing.assert_allclose(to.latents, jl, atol=lat_rtol * float(np.abs(jl).max()), rtol=0)

@@ -33,15 +33,27 @@ Phases:
      each of two prompts), full width and 50 steps, after a short warm-up
      batch, with the counters zeroed just before it: K1-K3 must each have
      launched; s/image, MFU and peak memory. Then at 15 steps with
-     paint-with-words on, under deterministic algorithms, a batch run
+     paint-with-words on, under PyTorch's default algorithms, a batch run
      twice must be bitwise equal and sample 0 must not move by a bit when
      the other samples' prompts change; each sample's distance to its
      one-sample run is printed; a standard-SD batch (10 steps) must agree
      with the one-sample runs of its seeds and prompts in float32 (and is
-     printed in bf16);
+     printed in bf16); and the guided path's reproducibility: the main
+     path's image at 15 steps, and a batch of two, each run twice under the
+     default algorithms, bitwise equal;
   7. the microbench path (``perf_attn_kernel.run``, few reps) with the
      counters zeroed just before it: V1 and W1 must each have launched;
-  8. a {"kernels": [...]} line, then the last line
+  8. the CLI path: ``frontends.cli.main`` in this process, sd15 bf16 at full
+     width, 50 steps, the two-object meta-prompt, seeds 28 and 42, default
+     flags, with ``--batch_size 1`` and ``--batch_size 2``, then one 15-step
+     run with ``--diagnostic_level 1 --save_individual_ca_maps true``; the
+     counters zeroed before each, K1-K3 must each launch in each; the
+     artifact tree (under ``build/``) must hold the expected files, every
+     final PNG must decode with the standard library's zlib to a
+     512x512x3 image that is not constant, the grid must hold the two
+     images, and the writer must be the native one; s/image of each sweep
+     and its seconds of artifact writing;
+  9. a {"kernels": [...]} line, then the last line
      {"ok": true, "device": {...}}.
 
 Any failed check or exception exits non-zero before the last line. Weights
@@ -67,6 +79,7 @@ HOPPER_SOURCES = ("flash_self_fwd.cu", "flash_self_bwd.cu", "flash_self_fwd_v1.c
 BATCH_WARMUP_STEPS = 2
 INDEPENDENCE_STEPS = 15  # threshold step 0 and every recursion step (0-14)
 INDEPENDENCE_PWW_STOP = 15
+F3_IMAGE_RUNS = 4  # the guided 15-step image, run this many times in phase 6
 STANDARD_STEPS = 10
 # samples 1-3 of the second independence batch: two groups, as in
 # workload.BATCH_PROMPTS, other words and boxes
@@ -77,14 +90,15 @@ OTHER_PROMPTS = (
 )
 # the standard-SD batch: four texts (standard SD reads no boxes)
 STANDARD_PROMPTS = ("a robot and a blue vase", "a cat on a red sofa", "a lighthouse at dusk", "two apples on a table")
-# On the card, a guided trajectory is not bitwise reproducible under
-# PyTorch's default algorithms: two runs of one guided batch differ by a few
-# percent of the latents' largest value by step 15 (printed below). Under
-# torch.use_deterministic_algorithms(True) two runs of one batch are bitwise
-# equal, and since no kernel of the batch reads another sample's rows,
-# sample 0 of a batch whose other samples take other prompts is bitwise
-# equal to sample 0 of the first batch. Any coupling of the samples (the
-# paint-with-words score max over the whole batch, a row mixed up) moves it.
+# Two runs of one guided batch are bitwise equal under PyTorch's default
+# algorithms (the guidance smoothing's reflect padding is built from slices:
+# the CUDA backward of F.pad(mode="reflect") accumulates with atomics and
+# made two runs differ by a few percent of max|latent| by step 15;
+# ``python -m guided_attention_tpu_torch.determinism``). Since no kernel of
+# the batch reads another sample's rows, sample 0 of a batch whose other
+# samples take other prompts is bitwise equal to sample 0 of the first
+# batch. Any coupling of the samples (the paint-with-words score max over
+# the whole batch, a row mixed up) moves it.
 # Standard SD, a batch against one-sample runs, in float32 (plain attention:
 # the kernels take bf16): the CFG forward runs at batch 8 against 2, so the
 # products sum in other orders, about 2^-20 relative each, through 10
@@ -556,30 +570,26 @@ def batch_phase(pipe, results: dict) -> dict:
             raise SystemExit(f"kernel {name} was not launched on the batch path")
 
     # sample 0 against a batch whose other samples take other prompts, with
-    # paint-with-words on (its score max is per sample), under deterministic
+    # paint-with-words on (its score max is per sample), under the default
     # algorithms; the first batch twice is the control
+    if torch.are_deterministic_algorithms_enabled():
+        raise SystemExit("deterministic algorithms are on; the checks below hold the default")
     hp = HyperParams(paint_with_words_stop=INDEPENDENCE_PWW_STOP)
     kw = dict(steps=INDEPENDENCE_STEPS, hp=hp, decode=False)
-    torch.use_deterministic_algorithms(True)
-    try:
-        first = workload.generate_batch(pipe, seeds, prompts, **kw)
-        again = workload.generate_batch(pipe, seeds, prompts, **kw)
-        other = workload.generate_batch(pipe, seeds, [prompts[0], *OTHER_PROMPTS], **kw)
-    finally:
-        torch.use_deterministic_algorithms(False)
+    first = workload.generate_batch(pipe, seeds, prompts, **kw)
+    again = workload.generate_batch(pipe, seeds, prompts, **kw)
+    other = workload.generate_batch(pipe, seeds, [prompts[0], *OTHER_PROMPTS], **kw)
     for tag, outs_ in (("first", first), ("other prompts", other)):
         log(f"  independence batch ({tag}): refine_iters[0] {[int(o.diagnostics.refine_iters[0]) for o in outs_]}, "
             f"n_evals {[int(o.diagnostics.n_evals.sum()) for o in outs_]}")
     independence = rel_max_err(torch.from_numpy(other[0].latents), torch.from_numpy(first[0].latents))
     log(f"  independence batch sample 0: rel max err {independence:.3e}")
-    # default algorithms, no limit: the same batch twice, and each sample
-    # against its one-sample run (rounding at other shapes, carried by the
-    # refinement, may also branch a threshold test otherwise)
-    runs = [workload.generate_batch(pipe, seeds, prompts, **kw) for _ in range(2)]
-    twice = [rel_max_err(torch.from_numpy(a.latents), torch.from_numpy(b.latents)) for a, b in zip(*runs)]
+    twice = [rel_max_err(torch.from_numpy(a.latents), torch.from_numpy(b.latents)) for a, b in zip(first, again)]
     log("  guided batch run twice, default algorithms (rel max err per sample): " + json.dumps(twice))
+    # each sample against its one-sample run, no limit (rounding at other
+    # shapes, carried by the refinement, may also branch a threshold test)
     dist = []
-    for seed, prompt, o in zip(seeds, prompts, runs[0]):
+    for seed, prompt, o in zip(seeds, prompts, first):
         single = pipe(meta_prompt=prompt, seed=seed, num_inference_steps=INDEPENDENCE_STEPS, hp=hp, decode=False,
                       capture_diagnostics=False)
         dist.append({"rel_max_err": rel_max_err(torch.from_numpy(o.latents), torch.from_numpy(single.latents)),
@@ -610,16 +620,156 @@ def batch_phase(pipe, results: dict) -> dict:
     del sd32
     results["batch_standard_vs_single"] = std_errs
 
-    check_same("independence batch run twice (deterministic algorithms)", [torch.from_numpy(o.latents) for o in again],
+    check_same("independence batch run twice (default algorithms)", [torch.from_numpy(o.latents) for o in again],
                [torch.from_numpy(o.latents) for o in first], results)
-    check_same("batch sample 0 with the other samples' prompts changed (deterministic algorithms)",
+    check_same("batch sample 0 with the other samples' prompts changed (default algorithms)",
                [torch.from_numpy(other[0].latents)], [torch.from_numpy(first[0].latents)], results)
     for b, (err, rms) in enumerate(std_errs["float32"]):
         check(f"standard-SD float32 batch sample {b} against its one-sample run (rel to max|latent|)", err,
               STANDARD_MAX_REL, results, rms_rel=rms)
         if rms > STANDARD_RMS_REL:
             raise SystemExit(f"standard-SD batch sample {b}: relative rms error {rms} above {STANDARD_RMS_REL}")
+
+    # the guided path's reproducibility under the default algorithms. The
+    # fault this guards against (atomics in a backward) does not show on
+    # every pair of runs: before the repair, one card run read the 15-step
+    # image bitwise equal twice while its batch of two differed. The batch
+    # checks (the B = 4 batch with paint-with-words above, and this batch
+    # of two) are the witness that counts; the image runs F3_IMAGE_RUNS
+    # times, each held against the first.
+    single = [pipe(meta_prompt=workload.META_PROMPT, seed=workload.TIMED_SEED, num_inference_steps=INDEPENDENCE_STEPS,
+                   decode=False, capture_diagnostics=False).latents for _ in range(F3_IMAGE_RUNS)]
+    check_same(f"guided 15-step image run {F3_IMAGE_RUNS} times (default algorithms)",
+               [torch.from_numpy(x) for x in single[1:]], [torch.from_numpy(single[0])] * (F3_IMAGE_RUNS - 1), results)
+    pair = [workload.generate_batch(pipe, seeds[1:3], prompts[1:3], steps=INDEPENDENCE_STEPS, decode=False)
+            for _ in range(2)]
+    check_same("guided 15-step batch of two run twice (default algorithms)",
+               [torch.from_numpy(o.latents) for o in pair[0]], [torch.from_numpy(o.latents) for o in pair[1]], results)
     return launches
+
+
+# the CLI phase (phase 8): its sweeps, the diagnostic run's steps, and where
+# its artifact trees go (a directory of the checkout that .gitignore lists)
+CLI_SEEDS = (28, 42)
+CLI_DIAG_STEPS = 15
+CLI_OUT = os.path.join("build", "chip_smoke_cli")
+CLI_IMAGE = 512  # sd15's image side
+
+
+def read_png(path: str):
+    """An 8-bit RGB PNG decoded with the standard library's zlib (every
+    chunk's CRC checked), as a uint8 [H, W, 3] array."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        b = f.read()
+    if b[:8] != b"\x89PNG\r\n\x1a\n":
+        raise SystemExit(f"{path}: not a PNG")
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(b):
+        (n,) = struct.unpack(">I", b[pos : pos + 4])
+        kind, data = b[pos + 4 : pos + 8], b[pos + 8 : pos + 8 + n]
+        if zlib.crc32(kind + data) != struct.unpack(">I", b[pos + 8 + n : pos + 12 + n])[0]:
+            raise SystemExit(f"{path}: bad CRC in {kind!r}")
+        if kind == b"IHDR":
+            w, h = struct.unpack(">II", data[:8])
+            if data[8:10] != bytes([8, 2]):
+                raise SystemExit(f"{path}: not 8-bit RGB")
+        elif kind == b"IDAT":
+            idat += data
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w * 3 + 1)
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def cli_phase(results: dict) -> dict:
+    """Phase 8: ``frontends.cli.main`` on the card, its launches and its
+    artifact trees. Returns the K1-K3 launch counts of the first sweep."""
+    import shutil
+
+    import numpy as np
+
+    from guided_attention_tpu_torch import workload
+    from guided_attention_tpu_torch.annotation import meta_prompt_clean
+    from guided_attention_tpu_torch.config import HyperParams
+    from guided_attention_tpu_torch.frontends import cli
+    from guided_attention_tpu_torch.ops.flash_attention import LAUNCHES, reset_launches
+    from guided_attention_tpu_torch.runtime import native
+    from guided_attention_tpu_torch.runtime.artifacts import dict_to_string
+
+    writer = native.AsyncArtifactWriter(1)
+    if not writer.native:
+        raise SystemExit("the artifact writer is not the native one")
+    log(f"  artifact writer: native, {native.load_library()._name}")
+    writer.close()
+    shutil.rmtree(CLI_OUT, ignore_errors=True)
+    hp = HyperParams()
+    suffix = dict_to_string({k: getattr(hp, k) for k in ("strict", "inside_loss_scale", "outside_loss_scale",
+                                                          "shrink_factor", "thresholds", "use_optimizer",
+                                                          "recurse_until", "recurse_steps")})
+    clean = meta_prompt_clean(workload.META_PROMPT)
+    base = ["--meta_prompt", workload.META_PROMPT, "--seeds", *map(str, CLI_SEEDS)]
+    runs = (
+        ("batch_size 1", CLI_SEEDS, base + ["--batch_size", "1"]),
+        ("batch_size 2", CLI_SEEDS, base + ["--batch_size", "2"]),
+        ("diagnostic", CLI_SEEDS[:1], ["--meta_prompt", workload.META_PROMPT, "--seeds", str(CLI_SEEDS[0]),
+                                       "--n_inference_steps", str(CLI_DIAG_STEPS), "--diagnostic_level", "1",
+                                       "--save_individual_ca_maps", "true"]),
+    )
+    out, first_launches = {}, None
+    for name, seeds, argv in runs:
+        root = os.path.join(CLI_OUT, name.replace(" ", "_"))
+        stats: dict = {}
+        reset_launches()
+        t0 = time.perf_counter()
+        cli.main(argv + ["--output_path", root], stats=stats)
+        wall = time.perf_counter() - t0
+        launches = {k: LAUNCHES[k] for k in MAIN_PATH_KERNELS}
+        first_launches = first_launches or launches
+        for k, count in launches.items():
+            if count <= 0:
+                raise SystemExit(f"kernel {k} was not launched on the CLI path ({name})")
+        run_dir = os.path.join(root, clean)
+        finals = []
+        for seed in seeds:
+            want = [f"{seed}{suffix}.png", f"{seed}{suffix}.txt"]
+            want += [os.path.join(str(seed), (clean + f"cur_seed_{seed}_cur_time_step_iter_{i:02d}_optimizeDeepLatent"
+                                              f"_False__subiter_00_pred").replace(".", "_") + ".png") for i in range(3)]
+            if name == "diagnostic":
+                want += [os.path.join(str(seed), "heads", "final.png")]
+            missing = [f for f in want if not os.path.exists(os.path.join(run_dir, f))]
+            maps = [f for f in os.listdir(os.path.join(run_dir, str(seed))) if f.startswith("_attnmap_")]
+            if missing or len(maps) < 2:
+                raise SystemExit(f"CLI {name}: missing artifacts {missing}, {len(maps)} attention maps")
+            img = read_png(os.path.join(run_dir, want[0]))
+            if img.shape != (CLI_IMAGE, CLI_IMAGE, 3) or float(img.std()) <= 0:
+                raise SystemExit(f"CLI {name}: final image of seed {seed} is {img.shape}, std {float(img.std())}")
+            finals.append(img)
+        grid = read_png(os.path.join(root, clean + ".png"))
+        tiles = [grid[:, CLI_IMAGE * j : CLI_IMAGE * (j + 1)] for j in range(len(finals))]
+        # the grid carries the last run's annotation overlay: each tile is its
+        # image except where a box, crosshair or label was drawn
+        same = [float((t == f).all(-1).mean()) for t, f in zip(tiles, finals)]
+        if grid.shape != (CLI_IMAGE, CLI_IMAGE * len(finals), 3) or min(same) < 0.9:
+            raise SystemExit(f"CLI {name}: grid {grid.shape} does not hold the {len(finals)} images ({same})")
+        names = [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs]
+        files = len(names)
+        kinds = {k: sum(k in f for f in names) for k in ("heads", "_attnmap_", "_pred.png", "_pred_pre_optim", ".txt")}
+        n = stats["images"]
+        out[name] = {"argv": argv, "images": n, "wall_s": wall, "generate_s": stats["generate_s"],
+                     "artifacts_s": stats["artifacts_s"], "s_per_image": stats["generate_s"] / n,
+                     "artifact_s_per_image": stats["artifacts_s"] / n, "files": files, "file_kinds": kinds,
+                     "launches": launches,
+                     "grid_tile_match": same}
+        log(f"CLI {name}: {n} image(s), {stats['generate_s'] / n:.3f} s/image generating, "
+            f"{stats['artifacts_s'] / n:.3f} s/image writing artifacts ({files} files: {json.dumps(kinds)}), "
+            f"wall {wall:.1f} s, "
+            f"launches {json.dumps(launches)} ({results['card']})")
+    results["cli"] = out
+    return first_launches
 
 
 def main() -> int:
@@ -727,11 +877,21 @@ def main() -> int:
         if count <= 0:
             path = "main" if name in MAIN_PATH_KERNELS else "microbench"
             raise SystemExit(f"kernel {name} was not launched on the {path} path")
+
+    # ---- 8. the CLI path
+    cli_launches = cli_phase(results)
+
     for row in kernels:
         row["launches"] = launches[row["name"]]
         if row["name"] in batch_launches:
             row["batch_launches"] = batch_launches[row["name"]]
+            row["cli_launches"] = cli_launches[row["name"]]
 
+    # exponentials are operations: the line names the two kinds of bound
+    for row in kernels:
+        for r in (row, row.get("batch_shape") or {}):
+            if r.get("bound_by") == "exp":
+                r["bound_by"], r["bound_by_unit"] = "operations", "exponentials"
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     os.makedirs("chiprun_out", exist_ok=True)

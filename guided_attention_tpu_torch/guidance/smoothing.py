@@ -6,13 +6,17 @@ utils/gaussian_smoothing.py:39-40); it is reproduced exactly, with reflect
 padding as at the reference's call site (pipeline_guided_attention.py:251-254).
 
 The blur is a weighted sum of shifted slices rather than a convolution, so
-it is exact float32 whatever the cuDNN TF32 setting is.
+it is exact float32 whatever the cuDNN TF32 setting is. The reflect padding
+is built from slices and ``torch.cat`` too: the backward of
+``F.pad(mode="reflect")`` on CUDA accumulates with atomics, so the guidance
+eval's latent gradient, and with it a guided image, differed from run to
+run on the card (``python -m guided_attention_tpu_torch.determinism``). The
+backward of slices and ``cat`` has no atomics.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 
 def gaussian_kernel(kernel_size: int = 3, sigma: float = 0.5, dim: int = 2) -> np.ndarray:
@@ -31,6 +35,17 @@ def gaussian_kernel(kernel_size: int = 3, sigma: float = 0.5, dim: int = 2) -> n
     return kernel.astype(np.float32)
 
 
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """``F.pad(x, (pad,) * 4, mode="reflect")`` of the last two axes, from
+    slices (each edge row or column mirrored, the edge itself not repeated)."""
+    for dim in (-2, -1):
+        n = x.shape[dim]
+        lo = x.narrow(dim, 1, pad).flip(dim)
+        hi = x.narrow(dim, n - 1 - pad, pad).flip(dim)
+        x = torch.cat([lo, x, hi], dim=dim)
+    return x
+
+
 def smooth_maps(maps: torch.Tensor, kernel_size: int = 3, sigma: float = 0.5) -> torch.Tensor:
     """Depthwise-smooth a stack of 2-D maps [..., H, W] with reflect padding
     ``(kernel_size-1)//2``; every leading axis is a channel."""
@@ -40,7 +55,7 @@ def smooth_maps(maps: torch.Tensor, kernel_size: int = 3, sigma: float = 0.5) ->
     h, w = shape[-2:]
     x = maps.reshape(-1, 1, h, w)
     if pad:
-        x = F.pad(x, (pad, pad, pad, pad), mode="reflect")
+        x = reflect_pad(x, pad)
     out = None
     for a in range(kernel_size):
         for b in range(kernel_size):

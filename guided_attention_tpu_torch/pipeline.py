@@ -199,13 +199,16 @@ def generate_batch(
     arrays: StepArrays,
     noise: Sequence[NoiseSource],
     from_where: Tuple[str, ...] = ("up", "down", "mid"),
+    on_device: Optional[Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]] = None,
 ) -> Tuple[torch.Tensor, StepDiag]:
     """Run the guided loop for B samples: ``latents0`` [B, h, w, C], ``emb``
     [B, 2, 77, D], ``spec`` stacked (``stack_specs``), one noise source per
     sample. Returns (final latents [B, h, w, C], StepDiag with every field
-    [B, S, ...])."""
+    [B, S, ...]). ``on_device`` maps the stacked diagnostic tensors (still
+    on the device, by field name) to the tensors copied to the host; the
+    runner's ``trim_heavy_diags`` slices and gathers them there."""
     with torch.no_grad():
-        return _Loop(sd, statics, hp, emb, spec, sched, arrays, noise, from_where).run(latents0)
+        return _Loop(sd, statics, hp, emb, spec, sched, arrays, noise, from_where).run(latents0, on_device)
 
 
 @dataclasses.dataclass
@@ -484,7 +487,7 @@ class _Loop:
         return _Pass(prev.to(latents.dtype), x0, loss, aux, bufs, did_update, ri, nev)
 
     # --- the step loop -------------------------------------------------------
-    def run(self, latents0):
+    def run(self, latents0, on_device=None):
         st, hp = self.st, self.hp
         B = latents0.shape[0]
         recurse_steps = max(int(hp.recurse_steps), 1) if self.guided else 1
@@ -512,7 +515,7 @@ class _Loop:
                 r += 1
             rows.append(self._diag_row(latents, out, n_evals, recursions))
             latents = out.prev.to(latents0.dtype)
-        return latents, self._stack(rows)
+        return latents, self._stack(rows, on_device)
 
     def _merge(self, out: _Pass, samples, p: _Pass) -> _Pass:
         """``out`` with the rows of ``samples`` taken from the later pass ``p``."""
@@ -562,7 +565,7 @@ class _Loop:
         )
         return row
 
-    def _stack(self, rows) -> StepDiag:
+    def _stack(self, rows, on_device=None) -> StepDiag:
         """Per-step rows -> StepDiag with every field [B, S, ...]."""
         S = len(rows)
         B = len(rows[0]["n_evals"])
@@ -570,10 +573,12 @@ class _Loop:
         for name in ("refine_iters", "n_evals", "recursions"):
             out[name] = np.asarray([r[name] for r in rows], np.int32).T.copy()
         out["did_update"] = np.asarray([r["did_update"] for r in rows], bool).T.copy()
-        tensor_names = [k for k in rows[0] if k not in out]
+        stacked = {k: torch.stack([r[k] for r in rows], dim=1) for k in rows[0] if k not in out}
+        if on_device is not None:
+            stacked = on_device(stacked)
         # one device->host copy per field
-        for name in tensor_names:
-            out[name] = torch.stack([r[name] for r in rows], dim=1).cpu().numpy()
+        for name, t in stacked.items():
+            out[name] = t.cpu().numpy()
         if not self.st.diag_level:
             unit = {
                 "per_token_unscaled": np.zeros((B, S, 1), np.float32),

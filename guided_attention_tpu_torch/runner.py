@@ -15,6 +15,7 @@ packages; ``latents=`` and ``noise=`` hand in explicit draws instead.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -22,17 +23,78 @@ import numpy as np
 import torch
 
 from guided_attention_tpu_torch.annotation import Annotation, parse_prompt
-from guided_attention_tpu_torch.config import HyperParams
+from guided_attention_tpu_torch.config import HyperParams, RunConfig
 from guided_attention_tpu_torch.guidance.custom import CustomLossRegistry, default_registry
 from guided_attention_tpu_torch.guidance.spec import GuidanceSpec, build_guidance_spec, stack_specs
 from guided_attention_tpu_torch.models.bundle import StableDiffusion
-from guided_attention_tpu_torch.pipeline import GenStatics, NoiseSource, StepDiag, generate_batch, make_step_arrays
+from guided_attention_tpu_torch.pipeline import (
+    GenStatics,
+    NoiseSource,
+    StepDiag,
+    generate_batch,
+    guidance_gates,
+    make_step_arrays,
+)
 from guided_attention_tpu_torch.schedulers.ddim import make_ddim_schedule
 
 
 def _mask_seed(seed) -> int:
     """Seeds up to 2^32-2 (the reference GUI range) as unsigned 32-bit."""
     return int(seed) & 0xFFFFFFFF
+
+
+# --- diagnostic trimming (opt-in: dispatch*(trim_heavy_diags=True)) ---
+# x0_pred and latent_in stack S steps of [h, w, C] f16, but artifacts at
+# diagnostic_level 0 read only steps [0, 1, 2] (the reference's
+# always_save_iter, pipeline:881). The per-step maps [S, R, R, K] and
+# eval_unscaled [S, R_sub, K] are nonzero only at steps that can run the
+# guidance eval (``guidance_gates``; with the default thresholds {0: 1.0},
+# step 0 alone), so they are gathered down to those steps on the device
+# before the device-to-host copy and scattered back into full-shape zeros
+# on the host (exact: the dropped steps were zeros).
+_TRIM_KEEP = 3
+
+
+def _trim_plan(statics: GenStatics, hp: HyperParams):
+    """The eval-step indices the maps/eval_unscaled gather keeps, or None
+    when every step could eval (skip_inert_guidance_passes off: trimming
+    would drop real content)."""
+    if statics.run_standard_sd:
+        return ()
+    if not statics.skip_inert_guidance_passes:
+        return None
+    _thr, _upd, needed = guidance_gates(statics, hp)
+    return tuple(int(i) for i in np.where(needed)[0])
+
+
+def _apply_trim(fields: Dict[str, torch.Tensor], keep) -> Dict[str, torch.Tensor]:
+    """The heavy per-step diagnostics [B, S, ...], still on the device, with
+    x0_pred and latent_in cut to their first steps and maps/eval_unscaled
+    gathered at ``keep`` (the ``_trim_plan``); no-op without them
+    (capture_diagnostics=False)."""
+    if "x0_pred" not in fields:
+        return fields
+    out = dict(fields)
+    out["x0_pred"], out["latent_in"] = fields["x0_pred"][:, :_TRIM_KEEP], fields["latent_in"][:, :_TRIM_KEEP]
+    if keep is not None:
+        idx = torch.tensor(keep, dtype=torch.long, device=fields["maps"].device)
+        out["maps"], out["eval_unscaled"] = fields["maps"][:, idx], fields["eval_unscaled"][:, idx]
+    return out
+
+
+def _scatter_trimmed(diags: StepDiag, keep, S: int) -> StepDiag:
+    """Host-side inverse of the maps/eval_unscaled gather on batched
+    diagnostics [B, S, ...]: the kept steps scattered back into full-[S]
+    zeros. No-op when nothing was gathered."""
+    if keep is None or diags.maps.shape[-1] <= 1 or diags.maps.shape[1] == S:
+        return diags
+
+    def scatter(x):
+        full = np.zeros(x.shape[:1] + (S,) + x.shape[2:], x.dtype)
+        full[:, list(keep)] = x
+        return full
+
+    return dataclasses.replace(diags, maps=scatter(diags.maps), eval_unscaled=scatter(diags.eval_unscaled))
 
 
 class GeneratorNoise:
@@ -80,8 +142,15 @@ class PendingBatch:
     _diags: StepDiag  # every field [B, S, ...]
     per_out: List[Tuple[str, List[Annotation], GuidanceSpec]]  # per sample (prompt, annotations, spec)
     seeds: List[int]
+    # trim_heavy_diags: the kept eval steps and the step count, for the
+    # host-side scatter of the gathered maps/eval_unscaled
+    _trim_keep: Optional[Tuple[int, ...]] = None
+    _trim_S: int = 0
 
     def result(self) -> List[PipelineOutput]:
+        diags = self._diags
+        if self._trim_keep is not None:
+            diags = _scatter_trimmed(diags, self._trim_keep, self._trim_S)
         u8 = None if self._img_u8 is None else self._img_u8.cpu().numpy()
         # numpy has no bfloat16: bf16 latents arrive as float32 (exact)
         lat = (self._latents.float() if self._latents.dtype == torch.bfloat16 else self._latents).cpu().numpy()
@@ -92,7 +161,7 @@ class PendingBatch:
             outputs.append(PipelineOutput(
                 images=None if img is None else img.astype(np.float32) / 255.0,
                 latents=lat[b : b + 1].copy(),
-                diagnostics=self._diags.sample(b),
+                diagnostics=diags.sample(b),
                 spec=spec,
                 prompt=prompt,
                 annotations=annotations,
@@ -322,13 +391,18 @@ class GuidedAttentionPipeline:
         capture_eval_latents: bool = False,
         remat_guidance_eval: bool = False,
         noise: Optional[NoiseSource] = None,
+        trim_heavy_diags: bool = False,
     ) -> PendingOutput:
         """Run one generation; the results stay on the device until
         ``.result()``. ``latents`` ([1, h, w, C], NHWC) replaces the seeded
         initial latents and ``noise(kind, i, r)`` the seeded re-noise / eta
-        draws."""
+        draws. ``trim_heavy_diags`` copies x0_pred and latent_in for the
+        first three steps only, and maps/eval_unscaled for the steps that
+        can run the guidance eval (the rest are zeros, restored on the
+        host)."""
         opts = PrepareOptions.from_locals(locals())
-        return PendingOutput(self._dispatch(opts, [seed], None, latents, None if noise is None else [noise], decode))
+        noise = None if noise is None else [noise]
+        return PendingOutput(self._dispatch(opts, [seed], None, latents, noise, decode, trim_heavy_diags))
 
     def __call__(self, *args, **kwargs) -> PipelineOutput:
         return self.dispatch(*args, **kwargs).result()
@@ -361,7 +435,8 @@ class GuidedAttentionPipeline:
         per_out = [(p[1], p[2], p[3]) for p in prepared]
         return per_out, hp, spec, statics, sched, arrays, emb
 
-    def _dispatch(self, opts: PrepareOptions, seeds, meta_prompts, latents, noise, decode: bool) -> PendingBatch:
+    def _dispatch(self, opts: PrepareOptions, seeds, meta_prompts, latents, noise, decode: bool,
+                  trim: bool = False) -> PendingBatch:
         per_out, hp, spec, statics, sched, arrays, emb = self._prepare_batch(opts, seeds, meta_prompts)
         cfg = self.sd.config
         dev = self.sd.device
@@ -378,9 +453,11 @@ class GuidedAttentionPipeline:
             noise = [GeneratorNoise(g, shape, dev) for g in gens]
         elif len(noise) != B:
             raise ValueError(f"noise has {len(noise)} sources for {B} seeds")
-        final, diags = generate_batch(self.sd, statics, hp, emb, lat0, spec, sched, arrays, noise)
+        keep = _trim_plan(statics, hp) if trim else None
+        on_device = functools.partial(_apply_trim, keep=keep) if trim else None
+        final, diags = generate_batch(self.sd, statics, hp, emb, lat0, spec, sched, arrays, noise, on_device=on_device)
         img_u8 = self.sd.decode_latents_u8(final) if decode else None
-        return PendingBatch(img_u8, final, diags, per_out, list(seeds))
+        return PendingBatch(img_u8, final, diags, per_out, list(seeds), keep, statics.num_steps)
 
     def dispatch_batch(
         self,
@@ -415,6 +492,7 @@ class GuidedAttentionPipeline:
         capture_eval_latents: bool = False,
         remat_guidance_eval: bool = False,
         noise: Optional[Sequence[NoiseSource]] = None,
+        trim_heavy_diags: bool = False,
     ) -> PendingBatch:
         """Run one generation per seed as one batch on the device; the
         results stay there until ``.result()``, which returns one
@@ -431,13 +509,25 @@ class GuidedAttentionPipeline:
         floating-point operations (a batch runs other kernel shapes).
 
         ``latents`` ([B, h, w, C]) and ``noise`` (one ``NoiseSource`` per
-        seed) replace the seeded draws. The JAX package's ``mesh`` (data
-        and tensor parallelism over devices) and ``trim_heavy_diags`` have
-        no counterpart here yet: one GPU runs the batch, and the full
-        diagnostics come back."""
+        seed) replace the seeded draws; ``trim_heavy_diags`` is
+        ``dispatch``'s. The JAX package's ``mesh`` (data and tensor
+        parallelism over devices) has no counterpart here yet: one GPU runs
+        the batch."""
         opts = PrepareOptions.from_locals(locals())
-        return self._dispatch(opts, list(seeds), meta_prompts, latents, noise, decode)
+        return self._dispatch(opts, list(seeds), meta_prompts, latents, noise, decode, trim_heavy_diags)
 
     def generate_batch(self, seeds: Sequence[int], **kwargs) -> List[PipelineOutput]:
         """``dispatch_batch(seeds, ...).result()`` (same keyword surface)."""
         return self.dispatch_batch(seeds, **kwargs).result()
+
+
+def pipeline_from_config(config: RunConfig, registry: Optional[CustomLossRegistry] = None) -> GuidedAttentionPipeline:
+    """The pipeline a ``RunConfig`` names, as the reference's load_model
+    builds it (run.py:18-29): SD1.x by default, SD2.1 with ``sd_2_1`` (or
+    the ``model`` preset), bf16 unless ``dtype`` is "float32" (and
+    ``half_precision`` is off), the weights of ``model_path`` (a diffusers
+    directory) or random ones, on ``config.device``."""
+    dtype = torch.bfloat16 if config.half_precision or config.dtype == "bfloat16" else torch.float32
+    model = config.model or ("sd21" if config.sd_2_1 else "sd15")
+    sd = StableDiffusion.create(model, dtype, device=config.device, checkpoint_dir=config.model_path)
+    return GuidedAttentionPipeline(sd, registry)

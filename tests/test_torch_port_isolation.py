@@ -36,16 +36,25 @@ def _port_sources():
 
 
 def test_port_imports_with_jax_blocked():
-    """Every module of the port imports with jax/flax made unimportable, and
-    no module of the JAX package gets loaded along the way."""
+    """Every module of the port imports with jax/flax (and PIL, matplotlib and
+    cv2, which only options import, inside their calls) made unimportable,
+    no module of the JAX package gets loaded along the way, and the native
+    artifact writer loaded is the port's own."""
     code = (
-        "import sys, pkgutil, importlib\n"
-        "sys.modules['jax'] = None; sys.modules['flax'] = None\n"
+        "import sys, pkgutil, importlib, tempfile, os\n"
+        "for name in ('jax', 'flax', 'PIL', 'matplotlib', 'cv2'):\n"
+        "    sys.modules[name] = None\n"
         "import guided_attention_tpu_torch as p, chip_smoke\n"
         "for m in pkgutil.walk_packages(p.__path__, 'guided_attention_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'guided_attention_tpu' or m.startswith('guided_attention_tpu.')]\n"
         "assert not bad, bad\n"
+        # the port's own native writer, not the JAX package's library
+        "from guided_attention_tpu_torch.runtime.native import AsyncArtifactWriter\n"
+        "w = AsyncArtifactWriter(1); assert w.native\n"
+        "w.submit_map(__import__('numpy').eye(4, dtype='float32'), os.path.join(tempfile.mkdtemp(), 'm.png')); w.close()\n"
+        "libs = open('/proc/self/maps').read()\n"
+        "assert 'libartifact_writer' in libs and 'guided_attention_tpu/runtime/native' not in libs\n"
         "print('n_modules', sum(1 for m in sys.modules if m.startswith('guided_attention_tpu_torch')))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
@@ -74,11 +83,16 @@ def test_port_package_has_every_counterpart_module():
         "ops.flash_attention", "schedulers.ddim", "guidance.spec", "guidance.smoothing",
         "guidance.losses", "guidance.custom", "ops.attention_variants", "runtime.flops",
         "runtime.timing", "perf_attn_kernel", "workload", "profile", "perf_batch",
+        "runtime.artifacts", "runtime.native", "viewers.vis", "frontends.cli",
     ):
         assert want in names, want
     for src in ("flash_self_fwd.cu", "flash_self_bwd.cu", "cross_attention_map.cu", "flash_self_fwd_v1.cu",
                 "flash_self_bwd_w1.cu", "common.cuh"):
         assert os.path.exists(os.path.join(PKG_DIR, "csrc", src)), src
+    # the port's own native writer: its source, and no prebuilt library in the package
+    native = os.path.join(PKG_DIR, "runtime", "native")
+    assert os.path.exists(os.path.join(native, "artifact_writer.cpp"))
+    assert not [n for n in os.listdir(native) if n.endswith(".so")]
 
 
 def test_default_device_is_cuda_and_does_not_fall_back():

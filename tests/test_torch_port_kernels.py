@@ -52,11 +52,10 @@ def test_flash_self_plain_matches_pallas(d):
     B, H, N = 1, 2, 256
     q, k, v, w = _arrays(d, (B, H, N, d), (B, H, N, d), (B, H, N, d), (B, H, N, d))
 
-    def jloss(q, k, v):
-        return jnp.sum(jfa.flash_attention(q, k, v, block_q=128, block_q_bwd=64) * w)
-
-    jout = jfa.flash_attention(q, k, v, block_q=128)
-    jg = jax.grad(jloss, (0, 1, 2))(q, k, v)
+    # one forward for the output and the gradient of sum(out * w): each
+    # Pallas call in interpret mode is an XLA:CPU compile of its own
+    jout, vjp = jax.vjp(lambda q, k, v: jfa.flash_attention(q, k, v, block_q=128, block_q_bwd=64), q, k, v)
+    jg = vjp(jnp.asarray(w))
 
     tq, tk, tv = _t(q, k, v)
     tout = tfa.flash_attention(tq, tk, tv)
@@ -140,12 +139,9 @@ def test_cross_map_plain_matches_pallas(B, H, NQ, K, D):
     q, k, v, w, wm = _arrays(7, (B, H, NQ, D), (B, H, K, D), (B, H, K, D), (B, H, NQ, D), (B, NQ, K))
     block_q = 64 if NQ % 64 == 0 else 32
 
-    def jloss(q, k, v):
-        o, m = jfa.cross_attention_with_map(q, k, v, block_q=block_q)
-        return jnp.sum(o * w) + jnp.sum(m * wm)
-
-    jo, jm = jfa.cross_attention_with_map(q, k, v, block_q=block_q)
-    jg = jax.grad(jloss, (0, 1, 2))(q, k, v)
+    # one forward for (out, map) and the gradient of sum(out * w) + sum(map * wm)
+    (jo, jm), vjp = jax.vjp(lambda q, k, v: jfa.cross_attention_with_map(q, k, v, block_q=block_q), q, k, v)
+    jg = vjp((jnp.asarray(w), jnp.asarray(wm)))
 
     tq, tk, tv = _t(q, k, v)
     to, tm = tfa.cross_attention_with_map(tq, tk, tv)

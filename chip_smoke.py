@@ -53,7 +53,24 @@ Phases:
      512x512x3 image that is not constant, the grid must hold the two
      images, and the writer must be the native one; s/image of each sweep
      and its seconds of artifact writing;
-  9. a {"kernels": [...]} line, then the last line
+  9. resumable runs and native checkpoints, sd15 bf16 at full width:
+     ``generate_resumable`` of the main path's workload (50 steps,
+     ``checkpoint_every=10``) bitwise equal to ``dispatch`` of its seed in
+     latents and uint8 image, s/image of each in turns (dispatch,
+     resumable, dispatch) and seconds per state write; the same run stopped
+     after step 20 by ``on_segment`` and run again: resumed from step 20,
+     bitwise equal, no state file left; that again with a threshold step
+     at 30 added, so that the guidance evals run after the resume, with
+     the counters zeroed before the resumed call: K1-K3 must each launch
+     in it; ``generate_batch_resumable`` at B = 2, 15 steps,
+     ``checkpoint_every=5``, stopped after step 10 and resumed, bitwise
+     equal to ``generate_batch``; ``frontends.cli.main`` with
+     ``--checkpoint_every 10`` for seed 28, whose final PNG must be phase
+     8's byte for byte; ``models.io.save_params`` of the bundle
+     into ``build/`` (removed after) and ``StableDiffusion.create(
+     checkpoint_dir=)``: every tensor bitwise equal; its bytes, save and
+     load seconds and peak memory;
+ 10. a {"kernels": [...]} line, then the last line
      {"ok": true, "device": {...}}.
 
 Any failed check or exception exits non-zero before the last line. Weights
@@ -685,6 +702,21 @@ def read_png(path: str):
     return rows[:, 1:].reshape(h, w, 3)
 
 
+def cli_names():
+    """The run directory's name and the file suffix the CLI gives the main
+    path's meta-prompt under the default hyperparameters."""
+    from guided_attention_tpu_torch import workload
+    from guided_attention_tpu_torch.annotation import meta_prompt_clean
+    from guided_attention_tpu_torch.config import HyperParams
+    from guided_attention_tpu_torch.runtime.artifacts import dict_to_string
+
+    hp = HyperParams()
+    suffix = dict_to_string({k: getattr(hp, k) for k in ("strict", "inside_loss_scale", "outside_loss_scale",
+                                                          "shrink_factor", "thresholds", "use_optimizer",
+                                                          "recurse_until", "recurse_steps")})
+    return meta_prompt_clean(workload.META_PROMPT), suffix
+
+
 def cli_phase(results: dict) -> dict:
     """Phase 8: ``frontends.cli.main`` on the card, its launches and its
     artifact trees. Returns the K1-K3 launch counts of the first sweep."""
@@ -693,12 +725,9 @@ def cli_phase(results: dict) -> dict:
     import numpy as np
 
     from guided_attention_tpu_torch import workload
-    from guided_attention_tpu_torch.annotation import meta_prompt_clean
-    from guided_attention_tpu_torch.config import HyperParams
     from guided_attention_tpu_torch.frontends import cli
     from guided_attention_tpu_torch.ops.flash_attention import LAUNCHES, reset_launches
     from guided_attention_tpu_torch.runtime import native
-    from guided_attention_tpu_torch.runtime.artifacts import dict_to_string
 
     writer = native.AsyncArtifactWriter(1)
     if not writer.native:
@@ -706,11 +735,7 @@ def cli_phase(results: dict) -> dict:
     log(f"  artifact writer: native, {native.load_library()._name}")
     writer.close()
     shutil.rmtree(CLI_OUT, ignore_errors=True)
-    hp = HyperParams()
-    suffix = dict_to_string({k: getattr(hp, k) for k in ("strict", "inside_loss_scale", "outside_loss_scale",
-                                                          "shrink_factor", "thresholds", "use_optimizer",
-                                                          "recurse_until", "recurse_steps")})
-    clean = meta_prompt_clean(workload.META_PROMPT)
+    clean, suffix = cli_names()
     base = ["--meta_prompt", workload.META_PROMPT, "--seeds", *map(str, CLI_SEEDS)]
     runs = (
         ("batch_size 1", CLI_SEEDS, base + ["--batch_size", "1"]),
@@ -770,6 +795,194 @@ def cli_phase(results: dict) -> dict:
             f"launches {json.dumps(launches)} ({results['card']})")
     results["cli"] = out
     return first_launches
+
+
+# the resumable phase (phase 9): the main path's run in segments of 10
+# steps, stopped after step 20; a variant with a second threshold step
+# after the stop, so that the resumed call evaluates guidance (K2, K3); a
+# batch of two in segments of 5, stopped after step 10; state files and
+# the native checkpoint under build/ (listed in .gitignore)
+RESUME_EVERY, RESUME_STOP = 10, 20
+RESUME_LATE_THRESHOLDS = {0: 1.0, 30: 1.0}
+RESUME_BATCH_STEPS, RESUME_BATCH_EVERY, RESUME_BATCH_STOP = 15, 5, 10
+RESUME_STATE = os.path.join("build", "chip_smoke_state")
+NATIVE_DIR = os.path.join("build", "chip_smoke_native")
+
+
+class StopRun(Exception):
+    """Raised by ``on_segment`` to stop a resumable run at a boundary."""
+
+
+def resume_phase(pipe, results: dict) -> dict:
+    """Phase 9: resumable runs and the native checkpoint. Returns the K1-K3
+    launch counts of the resumed call that evaluates guidance."""
+    import resource
+    import shutil
+
+    import torch
+
+    from guided_attention_tpu_torch import workload
+    from guided_attention_tpu_torch.frontends import cli
+    from guided_attention_tpu_torch.models.bundle import StableDiffusion
+    from guided_attention_tpu_torch.models.io import COMPONENTS, save_params
+    from guided_attention_tpu_torch.ops.flash_attention import LAUNCHES, reset_launches
+    from guided_attention_tpu_torch.runtime import checkpoint as ckpt
+
+    seed, state = workload.TIMED_SEED, RESUME_STATE
+    shutil.rmtree(state, ignore_errors=True)
+    writes = []  # seconds of each state write, the device-to-host copy included
+    save_state = ckpt.save_state
+
+    def timed_save(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = save_state(*args, **kwargs)
+        writes.append(time.perf_counter() - t0)
+        return out
+
+    def stop_after(step):
+        def on_segment(done, total):
+            if done == step:
+                raise StopRun
+        return on_segment
+
+    def state_files():
+        return sorted(os.listdir(state)) if os.path.isdir(state) else []
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def same_image(name, got, want):
+        check_same(name, [torch.from_numpy(got.latents), torch.from_numpy(got.images_u8)],
+                   [torch.from_numpy(want.latents), torch.from_numpy(want.images_u8)], results)
+
+    kw = dict(meta_prompt=workload.META_PROMPT, num_inference_steps=workload.STEPS, capture_diagnostics=False)
+    resumable = lambda **extra: pipe.generate_resumable(  # noqa: E731
+        seed=seed, checkpoint_every=RESUME_EVERY, state_dir=state, **kw, **extra)
+    ckpt.save_state = timed_save
+    try:
+        want, d1 = timed(lambda: workload.generate(pipe, seed))
+        got, r1 = timed(resumable)
+        n_writes = len(writes)
+        _, d2 = timed(lambda: workload.generate(pipe, seed))
+        same_image("resumable main path (50 steps, every 10) against dispatch", got, want)
+        if got.resumed_from_step != 0 or n_writes != workload.STEPS // RESUME_EVERY or state_files():
+            raise SystemExit(f"resumable run: resumed from {got.resumed_from_step}, {n_writes} writes, "
+                             f"state left {state_files()}")
+        try:
+            resumable(on_segment=stop_after(RESUME_STOP))
+            raise SystemExit("on_segment did not stop the run")
+        except StopRun:
+            pass
+        left = state_files()
+        again, r2 = timed(resumable)
+        same_image(f"main path stopped after step {RESUME_STOP} and resumed, against dispatch", again, want)
+        if again.resumed_from_step != RESUME_STOP or len(left) != RESUME_STOP // RESUME_EVERY or state_files():
+            raise SystemExit(f"resume: from step {again.resumed_from_step}, files {left} then {state_files()}")
+
+        # a threshold step after the stop: the resumed call runs guidance evals
+        late = dict(thresholds=RESUME_LATE_THRESHOLDS)
+        want_late = pipe(seed=seed, **kw, **late)
+        try:
+            resumable(on_segment=stop_after(RESUME_STOP), **late)
+        except StopRun:
+            pass
+        reset_launches()
+        again_late = resumable(**late)
+        torch.cuda.synchronize()
+        launches = {name: LAUNCHES[name] for name in MAIN_PATH_KERNELS}
+        same_image(f"threshold at step 30, stopped after step {RESUME_STOP} and resumed, against dispatch",
+                   again_late, want_late)
+        if again_late.resumed_from_step != RESUME_STOP or state_files():
+            raise SystemExit(f"late-threshold resume: from step {again_late.resumed_from_step}, left {state_files()}")
+        for name, count in launches.items():
+            if count <= 0:
+                raise SystemExit(f"kernel {name} was not launched in the resumed call")
+
+        # a batch of two, stopped and resumed
+        seeds, prompts = list(workload.BATCH_SEEDS[1:3]), workload.batch_prompts(3)[1:3]
+        bkw = dict(meta_prompts=prompts, num_inference_steps=RESUME_BATCH_STEPS, capture_diagnostics=False)
+        want_b = pipe.generate_batch(seeds, **bkw)
+        try:
+            pipe.generate_batch_resumable(seeds, checkpoint_every=RESUME_BATCH_EVERY, state_dir=state,
+                                          on_segment=stop_after(RESUME_BATCH_STOP), **bkw)
+        except StopRun:
+            pass
+        got_b = pipe.generate_batch_resumable(seeds, checkpoint_every=RESUME_BATCH_EVERY, state_dir=state, **bkw)
+        for b, (g, w) in enumerate(zip(got_b, want_b)):
+            same_image(f"batch of two sample {b}, stopped after step {RESUME_BATCH_STOP} and resumed, against "
+                       "generate_batch", g, w)
+        if any(g.resumed_from_step != RESUME_BATCH_STOP for g in got_b) or state_files():
+            raise SystemExit(f"batch resume: from {[g.resumed_from_step for g in got_b]}, left {state_files()}")
+
+        # the CLI's --checkpoint_every: the final PNG of seed 28 is phase 8's
+        # (batch size 1, same flags otherwise) byte for byte
+        root, cli_seed = os.path.join(CLI_OUT, "checkpoint_every"), CLI_SEEDS[0]
+        shutil.rmtree(root, ignore_errors=True)
+        cli.main(["--meta_prompt", workload.META_PROMPT, "--seeds", str(cli_seed), "--checkpoint_every",
+                  str(RESUME_EVERY), "--output_path", root])
+        clean, suffix = cli_names()
+        png = f"{cli_seed}{suffix}.png"
+        with open(os.path.join(root, clean, png), "rb") as f, \
+                open(os.path.join(CLI_OUT, "batch_size_1", clean, png), "rb") as g:
+            same_png = f.read() == g.read()
+        results.setdefault("checks", []).append({"name": "CLI --checkpoint_every final PNG", "ok": same_png})
+        log(f"  CLI --checkpoint_every {RESUME_EVERY}: final PNG byte for byte phase 8's {'ok' if same_png else 'FAIL'}")
+        if not same_png or os.listdir(os.path.join(root, "state")):
+            raise SystemExit("CLI --checkpoint_every: final PNG differs from phase 8's, or state left")
+    finally:
+        ckpt.save_state = save_state
+        shutil.rmtree(state, ignore_errors=True)
+    out = {
+        "steps": workload.STEPS, "checkpoint_every": RESUME_EVERY,
+        "dispatch_s_per_image": [d1, d2], "resumable_s_per_image": r1, "resumed_s": r2,
+        "state_writes": len(writes), "state_write_s": writes,
+        "state_write_s_median": sorted(writes)[len(writes) // 2],
+        "resumed_launches": launches,
+    }
+    log(f"resumable: dispatch {d1:.3f} s/image, resumable {r1:.3f}, dispatch {d2:.3f}; the resumed 30 steps "
+        f"{r2:.3f} s; {len(writes)} state writes, median {out['state_write_s_median'] * 1e3:.3f} ms "
+        f"(max {max(writes) * 1e3:.3f}); launches in the resumed call with a threshold at step 30 "
+        f"{json.dumps(launches)} ({results['card']})")
+
+    # the native checkpoint: save the bundle, load it into a new one
+    sd = pipe.sd
+    shutil.rmtree(NATIVE_DIR, ignore_errors=True)
+    rss_before_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20  # the process's high-water mark
+    try:
+        n, save_s = timed(lambda: save_params(NATIVE_DIR, sd))
+        nbytes = sum(os.path.getsize(os.path.join(NATIVE_DIR, f"{c}.msgpack")) for c in COMPONENTS)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loaded, load_s = timed(lambda: StableDiffusion.create("sd15", torch.bfloat16, device="cuda",
+                                                              checkpoint_dir=NATIVE_DIR))
+        peak = torch.cuda.max_memory_allocated()
+        rss_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+        for c in COMPONENTS:
+            a, b = getattr(loaded, c).state_dict(), getattr(sd, c).state_dict()
+            if set(a) != set(b):
+                raise SystemExit(f"native checkpoint {c}: keys differ")
+            check_same(f"native checkpoint {c} ({len(a)} tensors) loaded against the bundle saved",
+                       [a[k] for k in sorted(a)], [b[k] for k in sorted(b)], results)
+            if any(a[k].dtype != b[k].dtype for k in a):
+                raise SystemExit(f"native checkpoint {c}: dtypes differ")
+        del loaded
+    finally:
+        shutil.rmtree(NATIVE_DIR, ignore_errors=True)
+    out["native"] = {"tensors": n, "bytes": nbytes, "save_s": save_s, "load_s": load_s,
+                     "random_init_s": results.get("create_s"), "load_peak_gib": peak / 2**30,
+                     "load_peak_above_before_gib": (peak - base) / 2**30, "host_max_rss_gib": rss_gib,
+                     "host_max_rss_before_gib": rss_before_gib}
+    log(f"native checkpoint sd15 bf16: {n} tensors, {nbytes} bytes, save {save_s:.3f} s, create from it "
+        f"{load_s:.3f} s (random init {results.get('create_s', float('nan')):.3f} s), device peak "
+        f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} above the {base / 2**30:.3f} held before), host "
+        f"max RSS {rss_gib:.3f} GiB ({rss_before_gib:.3f} before the save) ({results['card']})")
+    results["resume"] = out
+    return launches
 
 
 def main() -> int:
@@ -881,13 +1094,18 @@ def main() -> int:
     # ---- 8. the CLI path
     cli_launches = cli_phase(results)
 
+    # ---- 9. resumable runs and native checkpoints
+    resumed_launches = resume_phase(pipe, results)
+
     for row in kernels:
         row["launches"] = launches[row["name"]]
         if row["name"] in batch_launches:
             row["batch_launches"] = batch_launches[row["name"]]
             row["cli_launches"] = cli_launches[row["name"]]
+            row["resumed_launches"] = resumed_launches[row["name"]]
 
-    # exponentials are operations: the line names the two kinds of bound
+    # ---- 10. the kernels line; exponentials are operations: the line names
+    # the two kinds of bound
     for row in kernels:
         for r in (row, row.get("batch_shape") or {}):
             if r.get("bound_by") == "exp":

@@ -6,16 +6,19 @@ CLI). ``execute`` runs seeds x hyperparameter states (reference
 run.py:93-135): seed by seed, or with ``--batch_size > 1`` the (prompt x
 seed) grid of each state in batches on the device (``dispatch_batch``), and
 writes the same artifact tree as the JAX package's CLI
-(``runtime/artifacts``).
+(``runtime/artifacts``). With ``--checkpoint_every N`` each run (or each
+batch) persists its state every N steps under ``--state_dir`` (default
+``<output_path>/state``) through ``generate_resumable`` /
+``generate_batch_resumable``, and the same command run again resumes
+where it stopped.
 
 Usage:
   python -m guided_attention_tpu_torch.frontends.cli --meta_prompt "a [robot:.6,.3,.4,.55] and a [vase:0,.3,.4,.55]" --seeds 28 42
   python -m guided_attention_tpu_torch.frontends.cli --device cpu --model micro --n_inference_steps 3 --meta_prompt ...
 
 Not in the port yet, and refused with NotImplementedError: --mesh_shape,
---num_processes > 1 (several GPUs, ROADMAP.md Queue 1 item 5),
---checkpoint_every > 0 (resumable runs, item 6) and --interactive (the web
-UI, item 8).
+--num_processes > 1 (several GPUs, ROADMAP.md Queue 1 item 5) and
+--interactive (the web UI, item 8).
 """
 from __future__ import annotations
 
@@ -80,7 +83,6 @@ def check_supported(config: RunConfig) -> None:
     refused = [
         (config.mesh_shape, "--mesh_shape (data and tensor parallelism over several GPUs)", 5),
         ((config.num_processes or 1) > 1, "--num_processes > 1 (several processes and GPUs)", 5),
-        (config.checkpoint_every > 0, "--checkpoint_every > 0 (resumable runs, runtime/checkpoint.py)", 6),
         (config.interactive, "--interactive (the web UI, frontends/gui.py)", 8),
     ]
     for on, what, item in refused:
@@ -135,8 +137,12 @@ def execute(config: RunConfig, pipe, hyperparam_iterations: Optional[List[Dict[s
     states = get_hyperparam_states(base_hp, hyperparam_iterations)
     # level-0 sweeps read the heavy per-step diagnostics only at steps
     # [0, 1, 2] (x0 preds): copy just those (save_individual_ca_maps needs
-    # the full latent_in)
-    trim = config.diagnostic_level == 0 and not config.save_individual_ca_maps
+    # the full latent_in). Not on the resumable paths: they persist the
+    # whole run's diagnostics
+    resumable = config.checkpoint_every > 0
+    trim = config.diagnostic_level == 0 and not config.save_individual_ca_maps and not resumable
+    state_dir = str(config.state_dir or (config.output_path / "state"))
+    resume_kw = dict(checkpoint_every=config.checkpoint_every, state_dir=state_dir)
 
     def run_kwargs(hp):
         return dict(
@@ -160,8 +166,11 @@ def execute(config: RunConfig, pipe, hyperparam_iterations: Optional[List[Dict[s
             # per-subiter pred_pre_optim snapshots (reference pipeline:517-535)
             capture_eval_latents=config.diagnostic_level > 0,
             eta=config.eta,
-            trim_heavy_diags=trim,
         )
+
+    def report_resume(step: int) -> None:
+        if step:
+            print(f"  resumed from step {step}")
 
     t0 = time.perf_counter()
     work = []  # (seed, hp, meta_prompt, PipelineOutput)
@@ -172,14 +181,26 @@ def execute(config: RunConfig, pipe, hyperparam_iterations: Optional[List[Dict[s
             prompts = [mp for mp, _ in chunk]
             print(f"Seeds (batch): {seeds}")
             prompt_kw = dict(meta_prompt=prompts[0]) if len(set(prompts)) == 1 else dict(meta_prompts=prompts)
-            outs = pipe.dispatch_batch(seeds, **prompt_kw, **run_kwargs(hp)).result()
+            if resumable:
+                # each chunk persists its whole batch every N steps
+                outs = pipe.generate_batch_resumable(seeds, **resume_kw, **prompt_kw, **run_kwargs(hp))
+                report_resume(outs[0].resumed_from_step)
+            else:
+                outs = pipe.dispatch_batch(seeds, **prompt_kw, trim_heavy_diags=trim, **run_kwargs(hp)).result()
             work.extend((s, hp, mp, o) for (mp, s), o in zip(chunk, outs))
     else:
         for seed in config.seeds:
             for hp in states:
                 for meta_prompt in state_prompts(config, hp):
-                    print(f"Seed: {seed}")
-                    out = pipe.dispatch(meta_prompt=meta_prompt, seed=seed, **run_kwargs(hp)).result()
+                    if resumable:
+                        print(f"Seed: {seed} (resumable, every {config.checkpoint_every} steps)")
+                        out = pipe.generate_resumable(seed=seed, meta_prompt=meta_prompt, **resume_kw,
+                                                      **run_kwargs(hp))
+                        report_resume(out.resumed_from_step)
+                    else:
+                        print(f"Seed: {seed}")
+                        out = pipe.dispatch(meta_prompt=meta_prompt, seed=seed, trim_heavy_diags=trim,
+                                            **run_kwargs(hp)).result()
                     work.append((seed, hp, meta_prompt, out))
     t1 = time.perf_counter()
     if not work:  # empty --seeds: nothing generated, nothing to grid

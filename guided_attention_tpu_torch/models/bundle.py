@@ -3,9 +3,10 @@
 ``StableDiffusion.create(model, dtype, device, seed, checkpoint_dir)``
 builds random-init weights at the preset's full width, from a seed, with
 flax's default initializers (see ``models/layers.py``), or, given a
-diffusers checkpoint directory, that checkpoint's weights
-(``models/convert.load_component_params``; the JAX package's native
-msgpack format is not read yet). ``load_jax_params`` fills the modules from
+checkpoint directory, its weights: a native msgpack checkpoint first
+(``models/io``, the JAX package's format, which either package writes),
+else a diffusers directory (``models/convert.load_component_params``).
+``load_jax_params`` fills the modules from
 the JAX package's parameter trees (tests use it to give both packages the
 same weights).
 """
@@ -20,6 +21,7 @@ import torch
 from guided_attention_tpu_torch.models.clip import CLIPTextModel
 from guided_attention_tpu_torch.models.configs import StableDiffusionConfig, get_config
 from guided_attention_tpu_torch.models.convert import load_component_params, params_from_jax
+from guided_attention_tpu_torch.models.io import is_native_checkpoint, load_params
 from guided_attention_tpu_torch.models.layers import cast_, init_flax_like_
 from guided_attention_tpu_torch.models.tokenizer import load_tokenizer, pad_ids
 from guided_attention_tpu_torch.models.unet import UNet2DCondition
@@ -57,9 +59,10 @@ class StableDiffusion:
         checkpoint_dir: Optional[str] = None,
     ) -> "StableDiffusion":
         """Bundle of a preset ("sd15", "sd21", "micro"): random init from
-        ``seed``, or the weights of a diffusers ``checkpoint_dir`` (its
-        ``unet``, ``text_encoder`` and ``vae`` subfolders, and its
-        ``tokenizer`` subfolder where there is one)."""
+        ``seed``, or the weights of ``checkpoint_dir``: a native checkpoint
+        (``unet.msgpack``, ``text_encoder.msgpack``, ``vae.msgpack``) or a
+        diffusers directory (``unet``, ``text_encoder`` and ``vae``
+        subfolders); its ``tokenizer`` subfolder where there is one."""
         return cls.from_config(get_config(model, dtype), device, seed, checkpoint_dir)
 
     @classmethod
@@ -78,11 +81,13 @@ class StableDiffusion:
         cast_(clip, cfg.clip.dtype)
         cast_(vae, cfg.vae.dtype)
         tokenizer_dir = None
-        if checkpoint_dir is not None:
+        if checkpoint_dir is not None and is_native_checkpoint(checkpoint_dir):
+            load_params(checkpoint_dir, {"unet": unet, "text_encoder": clip, "vae": vae})
+        elif checkpoint_dir is not None:
             for name, module in (("unet", unet), ("text_encoder", clip), ("vae", vae)):
                 module.load_state_dict(load_component_params(checkpoint_dir, name, module))
-            if os.path.isdir(os.path.join(checkpoint_dir, "tokenizer")):
-                tokenizer_dir = checkpoint_dir
+        if checkpoint_dir is not None and os.path.isdir(os.path.join(checkpoint_dir, "tokenizer")):
+            tokenizer_dir = checkpoint_dir
         for m in (unet, clip, vae):
             m.eval()
         return cls(cfg, unet, clip, vae, load_tokenizer(tokenizer_dir), dev)

@@ -200,15 +200,22 @@ def generate_batch(
     noise: Sequence[NoiseSource],
     from_where: Tuple[str, ...] = ("up", "down", "mid"),
     on_device: Optional[Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]] = None,
+    start: int = 0,
+    stop: Optional[int] = None,
 ) -> Tuple[torch.Tensor, StepDiag]:
     """Run the guided loop for B samples: ``latents0`` [B, h, w, C], ``emb``
     [B, 2, 77, D], ``spec`` stacked (``stack_specs``), one noise source per
     sample. Returns (final latents [B, h, w, C], StepDiag with every field
     [B, S, ...]). ``on_device`` maps the stacked diagnostic tensors (still
     on the device, by field name) to the tensors copied to the host; the
-    runner's ``trim_heavy_diags`` slices and gathers them there."""
+    runner's ``trim_heavy_diags`` slices and gathers them there.
+
+    ``start`` / ``stop`` run only the steps [start, stop) of the schedule
+    (a segment of a resumable run): ``latents0`` is then the latent entering
+    ``start``, the diagnostics hold stop - start steps, and everything per
+    step stays keyed by the absolute step."""
     with torch.no_grad():
-        return _Loop(sd, statics, hp, emb, spec, sched, arrays, noise, from_where).run(latents0, on_device)
+        return _Loop(sd, statics, hp, emb, spec, sched, arrays, noise, from_where).run(latents0, on_device, start, stop)
 
 
 @dataclasses.dataclass
@@ -487,13 +494,19 @@ class _Loop:
         return _Pass(prev.to(latents.dtype), x0, loss, aux, bufs, did_update, ri, nev)
 
     # --- the step loop -------------------------------------------------------
-    def run(self, latents0, on_device=None):
+    def run(self, latents0, on_device=None, start=0, stop=None):
+        """Steps [start, stop) of the schedule (all of them by default);
+        nothing but the latents crosses from one step to the next here, and
+        each sample's draws come from its own noise source."""
         st, hp = self.st, self.hp
+        stop = st.num_steps if stop is None else stop
+        if not 0 <= start < stop <= st.num_steps:
+            raise ValueError(f"steps [{start}, {stop}) are not a segment of [0, {st.num_steps})")
         B = latents0.shape[0]
         recurse_steps = max(int(hp.recurse_steps), 1) if self.guided else 1
         latents = latents0
         rows = []
-        for i in range(st.num_steps):
+        for i in range(start, stop):
             t = self.timesteps[i]
             gate = float(self.arrays.pww_gates[i])
             # re-noise recursion ("time travel"): a sample re-runs the step

@@ -11,13 +11,19 @@ come, in loop order, from one ``torch.Generator`` on the model's device
 seeded with its seed, in a batch as alone. The JAX package draws them from
 ``jax.random``, so the same seed gives a different image in the two
 packages; ``latents=`` and ``noise=`` hand in explicit draws instead.
+
+``generate_resumable`` / ``generate_batch_resumable`` run the same loop in
+segments of ``checkpoint_every`` steps and persist, after each, the
+latents and each sample's generator state (``runtime/checkpoint``); run
+again with the same configuration, they resume from the newest state and
+give the uninterrupted run's bits, which are ``dispatch``'s.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -119,6 +125,7 @@ class PipelineOutput:
     prompt: str
     annotations: List[Annotation]
     images_u8: Optional[np.ndarray] = None  # [1, H, W, 3] uint8
+    resumed_from_step: int = 0  # the step a resumable run picked up at (0: fresh)
 
     def average_maps(self) -> Optional[np.ndarray]:
         """Maps averaged over the steps that evaluated guidance, or None."""
@@ -435,16 +442,25 @@ class GuidedAttentionPipeline:
         per_out = [(p[1], p[2], p[3]) for p in prepared]
         return per_out, hp, spec, statics, sched, arrays, emb
 
+    def _latent_shape(self) -> Tuple[int, int, int, int]:
+        cfg = self.sd.config
+        return (1, cfg.latent_size, cfg.latent_size, cfg.unet.in_channels)
+
+    def _seeded(self, seeds) -> Tuple[List[torch.Generator], torch.Tensor]:
+        """Each seed's generator on the model's device, and the initial
+        latents [B, h, w, C] in the model dtype, the first draw of each."""
+        dev, shape = self.sd.device, self._latent_shape()
+        gens = [torch.Generator(device=dev).manual_seed(_mask_seed(s)) for s in seeds]
+        lat0 = torch.cat([torch.randn(shape, generator=g, device=dev, dtype=torch.float32) for g in gens])
+        return gens, lat0.to(self.sd.config.unet.dtype)
+
     def _dispatch(self, opts: PrepareOptions, seeds, meta_prompts, latents, noise, decode: bool,
                   trim: bool = False) -> PendingBatch:
         per_out, hp, spec, statics, sched, arrays, emb = self._prepare_batch(opts, seeds, meta_prompts)
-        cfg = self.sd.config
         dev = self.sd.device
         B = len(seeds)
-        shape = (1, cfg.latent_size, cfg.latent_size, cfg.unet.in_channels)
-        gens = [torch.Generator(device=dev).manual_seed(_mask_seed(s)) for s in seeds]
-        lat0 = torch.cat([torch.randn(shape, generator=g, device=dev, dtype=torch.float32) for g in gens])
-        lat0 = lat0.to(cfg.unet.dtype)
+        shape = self._latent_shape()
+        gens, lat0 = self._seeded(seeds)
         if latents is not None:
             lat0 = torch.as_tensor(np.asarray(latents) if not torch.is_tensor(latents) else latents, device=dev).clone()
             if tuple(lat0.shape) != (B,) + shape[1:]:
@@ -519,6 +535,111 @@ class GuidedAttentionPipeline:
     def generate_batch(self, seeds: Sequence[int], **kwargs) -> List[PipelineOutput]:
         """``dispatch_batch(seeds, ...).result()`` (same keyword surface)."""
         return self.dispatch_batch(seeds, **kwargs).result()
+
+    # --- resumable generation -------------------------------------------
+    def _identity_parts(self) -> Tuple[str, ...]:
+        # a generator state is only valid for its device type, and latents
+        # for their dtype: both are part of a run's identity
+        cfg = self.sd.config
+        return f"model={cfg.name}", f"dtype={cfg.unet.dtype}", f"device={self.sd.device.type}"
+
+    def _resumable(self, opts: PrepareOptions, seeds: Sequence[int], meta_prompts, identity: str,
+                   checkpoint_every: int, state_dir: str, resume: bool, decode: bool, keep_state: bool,
+                   on_segment) -> List[PipelineOutput]:
+        """The loop of both resumable entries: restore the newest state of
+        ``identity`` (step reached, latents, diagnostics, generator states),
+        run the remaining steps in segments of the ``checkpoint_every`` grid
+        and persist each one."""
+        from guided_attention_tpu_torch.runtime import checkpoint as ckpt
+
+        per_out, hp, spec, statics, sched, arrays, emb = self._prepare_batch(opts, seeds, meta_prompts)
+        dev, shape, S = self.sd.device, self._latent_shape(), statics.num_steps
+        st = ckpt.latest_state(state_dir, identity) if resume else None
+        # a state without one generator state per sample cannot resume
+        if st is not None and st[3] is not None and len(st[3]) == len(seeds):
+            start, lat, diags, states = st
+            latents = torch.as_tensor(lat).to(dev)
+            gens = [torch.Generator(device=dev) for _ in seeds]
+            for g, state in zip(gens, states):
+                g.set_state(torch.from_numpy(np.array(state, np.uint8)))
+        else:
+            start, diags = 0, None
+            gens, latents = self._seeded(seeds)
+        for a, b in ckpt.segment_bounds(start, S, checkpoint_every) if start < S else ():
+            noise = [GeneratorNoise(g, shape, dev) for g in gens]
+            latents, seg = generate_batch(self.sd, statics, hp, emb, latents, spec, sched, arrays, noise,
+                                          start=a, stop=b)
+            ckpt.save_state(state_dir, identity, b, latents, seg, seg_start=a,
+                            generators=[g.get_state() for g in gens])
+            diags = seg if diags is None else ckpt.concat_diags([diags, seg])
+            if on_segment is not None:
+                on_segment(b, S)
+        img_u8 = self.sd.decode_latents_u8(latents) if decode else None
+        outs = PendingBatch(img_u8, latents, diags, per_out, list(seeds)).result()
+        if not keep_state:
+            ckpt.clear_state(state_dir, identity)
+        for o in outs:
+            o.resumed_from_step = start
+        return outs
+
+    def generate_resumable(
+        self,
+        seed: int = 42,
+        checkpoint_every: int = 10,
+        state_dir: str = "outputs/state",
+        resume: bool = True,
+        decode: bool = True,
+        keep_state: bool = False,
+        on_segment: Optional[Callable[[int, int], None]] = None,
+        **kwargs,
+    ) -> PipelineOutput:
+        """One image with mid-run checkpoints: the loop runs in segments of
+        ``checkpoint_every`` steps and persists (step, latents, diagnostics,
+        generator state) to ``state_dir`` after each. Called again with the
+        same configuration and seed, it resumes from the newest state and
+        gives the uninterrupted run's bits, which are ``dispatch``'s of the
+        seed. The state files are removed when the run completes, unless
+        ``keep_state``; ``on_segment(step_done, total_steps)`` is called
+        after each persisted segment. Keywords: ``dispatch``'s options
+        (``PrepareOptions``), without latents or noise."""
+        from guided_attention_tpu_torch.runtime import checkpoint as ckpt
+
+        opts = PrepareOptions(**kwargs)
+        identity = ckpt.run_identity(repr(opts), f"seed={_mask_seed(seed)}", *self._identity_parts())
+        return self._resumable(opts, [seed], None, identity, checkpoint_every, state_dir, resume, decode,
+                               keep_state, on_segment)[0]
+
+    def generate_batch_resumable(
+        self,
+        seeds: Sequence[int],
+        checkpoint_every: int = 10,
+        state_dir: str = "outputs/state",
+        resume: bool = True,
+        decode: bool = True,
+        keep_state: bool = False,
+        on_segment: Optional[Callable[[int, int], None]] = None,
+        meta_prompts: Optional[Sequence[str]] = None,
+        mesh=None,
+        **kwargs,
+    ) -> List[PipelineOutput]:
+        """``generate_batch`` with mid-run checkpoints, as
+        ``generate_resumable``: the whole batch runs in segments and
+        persists its latents, diagnostics and every sample's generator
+        state after each. ``meta_prompts`` gives one prompt per seed,
+        ``meta_prompt=`` (a keyword of ``PrepareOptions``) one for all. The
+        JAX package's ``mesh`` (several devices) is not in the port yet."""
+        from guided_attention_tpu_torch.runtime import checkpoint as ckpt
+
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (data and tensor parallelism over several GPUs) is not in the PyTorch port yet: "
+                "ROADMAP.md Queue 1 item 5")
+        opts = PrepareOptions(**kwargs)
+        identity = ckpt.run_identity(
+            repr(opts), f"seeds={[_mask_seed(s) for s in seeds]}",
+            f"prompts={None if meta_prompts is None else list(meta_prompts)}", *self._identity_parts())
+        return self._resumable(opts, list(seeds), meta_prompts, identity, checkpoint_every, state_dir, resume,
+                               decode, keep_state, on_segment)
 
 
 def pipeline_from_config(config: RunConfig, registry: Optional[CustomLossRegistry] = None) -> GuidedAttentionPipeline:

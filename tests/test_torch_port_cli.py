@@ -242,7 +242,7 @@ def test_profile_dir_writes_a_chrome_trace(tmp_path):
 @pytest.mark.parametrize("flag", [
     ["--mesh_shape", '{"data": 2}'],
     ["--num_processes", "2"],
-    ["--checkpoint_every", "5"],
+    ["--checkpoint_every", "5", "--mesh_shape", '{"data": 2}'],  # resumable runs are in; over several GPUs not
     ["--interactive", "true"],
 ])
 def test_unsupported_options_raise(flag, tmp_path):

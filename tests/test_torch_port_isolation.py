@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no jax, no flax, nothing of the JAX package,
-and no silent CPU fallback for its CUDA default."""
+"""The PyTorch port stands alone: no jax, no flax, no msgpack or ml_dtypes
+(the card's machine has neither), nothing of the JAX package, and no silent
+CPU fallback for its CUDA default."""
 import os
 import pkgutil
 import re
@@ -25,7 +26,7 @@ def _one_torch_thread():
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.dirname(guided_attention_tpu_torch.__file__)
-_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|guided_attention_tpu)(\.|\s|$)", re.M)
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|msgpack|ml_dtypes|guided_attention_tpu)(\.|\s|$)", re.M)
 
 
 def _port_sources():
@@ -36,13 +37,14 @@ def _port_sources():
 
 
 def test_port_imports_with_jax_blocked():
-    """Every module of the port imports with jax/flax (and PIL, matplotlib and
-    cv2, which only options import, inside their calls) made unimportable,
+    """Every module of the port imports with jax/flax, msgpack and ml_dtypes
+    (and PIL, matplotlib and cv2, which only options import, inside their
+    calls) made unimportable,
     no module of the JAX package gets loaded along the way, and the native
     artifact writer loaded is the port's own."""
     code = (
         "import sys, pkgutil, importlib, tempfile, os\n"
-        "for name in ('jax', 'flax', 'PIL', 'matplotlib', 'cv2'):\n"
+        "for name in ('jax', 'flax', 'msgpack', 'ml_dtypes', 'PIL', 'matplotlib', 'cv2'):\n"
         "    sys.modules[name] = None\n"
         "import guided_attention_tpu_torch as p, chip_smoke\n"
         "for m in pkgutil.walk_packages(p.__path__, 'guided_attention_tpu_torch.'):\n"
@@ -83,7 +85,8 @@ def test_port_package_has_every_counterpart_module():
         "ops.flash_attention", "schedulers.ddim", "guidance.spec", "guidance.smoothing",
         "guidance.losses", "guidance.custom", "ops.attention_variants", "runtime.flops",
         "runtime.timing", "perf_attn_kernel", "workload", "profile", "perf_batch",
-        "runtime.artifacts", "runtime.native", "viewers.vis", "frontends.cli",
+        "runtime.artifacts", "runtime.native", "viewers.vis", "frontends.cli", "runtime.serialization",
+        "runtime.checkpoint", "models.io",
     ):
         assert want in names, want
     for src in ("flash_self_fwd.cu", "flash_self_bwd.cu", "cross_attention_map.cu", "flash_self_fwd_v1.cu",

@@ -33,28 +33,38 @@ def _draw(rng, name: str, shape) -> np.ndarray:
     return rng.standard_normal(shape) / np.sqrt(shape[-1])  # embeddings
 
 
+def jax_param_shapes(model: str, dtype=jnp.float32, components=("unet", "text_encoder", "vae")) -> dict:
+    """The JAX package's parameter trees of a preset's ``components`` as
+    ``ShapeDtypeStruct`` leaves: the trees ``StableDiffusion.create`` inits,
+    traced by ``jax.eval_shape`` on abstract inputs (nothing is compiled or
+    allocated)."""
+    cfg = get_config(model, dtype)
+    spec = jax.ShapeDtypeStruct
+    key = spec((2,), jnp.uint32)
+    s = cfg.latent_size
+    lat = spec((1, s, s, cfg.unet.in_channels), dtype)
+    inits = {
+        "unet": lambda: jax.eval_shape(UNet2DCondition(cfg.unet).init, key, lat, spec((), jnp.int32),
+                                       spec((1, 77, cfg.unet.cross_attention_dim), dtype)),
+        "text_encoder": lambda: jax.eval_shape(CLIPTextModel(cfg.clip).init, key, spec((1, 77), jnp.int32)),
+        # both directions, as create() does, so the tree is complete
+        "vae": lambda: jax.eval_shape(
+            lambda k, z, x: AutoencoderKL(cfg.vae).init(k, z, x, method=lambda m, z, x: (m.decode(z), m.encode(x))),
+            key, lat, spec((1, 32, 32, 3), dtype)),
+    }
+    return {c: inits[c]()["params"] for c in components}
+
+
 def jax_micro_bundle(seed: int = 0) -> StableDiffusion:
     """The JAX package's micro StableDiffusion in float32, random weights."""
     cfg = get_config("micro", jnp.float32)
-    unet, clip, vae = UNet2DCondition(cfg.unet), CLIPTextModel(cfg.clip), AutoencoderKL(cfg.vae)
-    key = jax.random.PRNGKey(0)
-    s = cfg.latent_size
-    lat = jnp.zeros((1, s, s, cfg.unet.in_channels), jnp.float32)
-    ctx = jnp.zeros((1, 77, cfg.unet.cross_attention_dim), jnp.float32)
-    img = jnp.zeros((1, 32, 32, 3), jnp.float32)
-    shapes = {
-        "unet": jax.eval_shape(unet.init, key, lat, jnp.int32(0), ctx)["params"],
-        "text_encoder": jax.eval_shape(clip.init, key, jnp.zeros((1, 77), jnp.int32))["params"],
-        # both directions, as create() does, so the tree is complete
-        "vae": jax.eval_shape(
-            lambda k, z, x: vae.init(k, z, x, method=lambda m, z, x: (m.decode(z), m.encode(x))), key, lat, img
-        )["params"],
-    }
     rng = np.random.default_rng(seed)
     params = jax.tree_util.tree_map_with_path(
-        lambda path, leaf: jnp.asarray(_draw(rng, path[-1].key, leaf.shape), jnp.float32), shapes
+        lambda path, leaf: jnp.asarray(_draw(rng, path[-1].key, leaf.shape), jnp.float32),
+        jax_param_shapes("micro"),
     )
-    return StableDiffusion(cfg, unet, clip, vae, load_tokenizer(None), params)
+    return StableDiffusion(cfg, UNet2DCondition(cfg.unet), CLIPTextModel(cfg.clip), AutoencoderKL(cfg.vae),
+                           load_tokenizer(None), params)
 
 
 def jax_draws(jp, seed):

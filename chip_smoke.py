@@ -70,7 +70,27 @@ Phases:
      into ``build/`` (removed after) and ``StableDiffusion.create(
      checkpoint_dir=)``: every tensor bitwise equal; its bytes, save and
      load seconds and peak memory;
- 10. a {"kernels": [...]} line, then the last line
+ 10. serving, sd15 bf16 at full width, 50 steps: (a) ``BatchingEngine``
+     (buckets 1, 2, 4) filled with three requests (two seeds under
+     ``BATCH_PROMPTS[0]``, one under ``[1]``) before its thread starts, the
+     counters zeroed just before: one bucket-4 batch with one padded
+     sample, each output bitwise equal (uint8 image and latents) to its
+     sample of ``generate_batch`` of the padded seeds and prompts, K1-K3
+     each launched in it; (b) ``make_server`` on 127.0.0.1: ``/healthz``
+     names the card, four concurrent ``POST /generate`` of the main path
+     (seeds 40-43, 0.1 s apart) form one batch whose PNGs decode to
+     ``generate_batch`` of its seeds bit for bit, malformed requests get
+     400, a 15-step ``save_artifacts`` request leaves its tree under
+     ``build/``; (c) the web UI (``gui.run_server(once=True)``): ``GET /``
+     returns the port's page and one ``POST /execute_function`` leaves a
+     decodable ``static/output.png``; (d) ``perf_server.run_load`` at 1
+     client (2 requests) and 4 (8), then a burst of 8 clients of one
+     request each, all queued before the batcher starts; a smoke reading:
+     s/image beside phase 6's, the batch sizes, min/p50/max latency beside
+     the last batch's seconds. In the burst two groups of 4 wait at once,
+     and the first must be delivered within 1.5 batch times (a loop that
+     delivers a group after the next group's dispatch takes two);
+ 11. a {"kernels": [...]} line, then the last line
      {"ok": true, "device": {...}}.
 
 Any failed check or exception exits non-zero before the last line. Weights
@@ -84,6 +104,7 @@ import json
 import os
 import sys
 import time
+from pathlib import Path
 
 # the kernels of each path: every one must launch when its path is driven
 MAIN_PATH_KERNELS = ("flash_self_fwd", "flash_self_bwd", "cross_attention_map_fwd")
@@ -674,6 +695,12 @@ CLI_IMAGE = 512  # sd15's image side
 
 
 def read_png(path: str):
+    """An 8-bit RGB PNG file decoded by ``decode_png``."""
+    with open(path, "rb") as f:
+        return decode_png(f.read(), path)
+
+
+def decode_png(b: bytes, path: str = "PNG bytes"):
     """An 8-bit RGB PNG decoded with the standard library's zlib (every
     chunk's CRC checked), as a uint8 [H, W, 3] array."""
     import struct
@@ -681,8 +708,6 @@ def read_png(path: str):
 
     import numpy as np
 
-    with open(path, "rb") as f:
-        b = f.read()
     if b[:8] != b"\x89PNG\r\n\x1a\n":
         raise SystemExit(f"{path}: not a PNG")
     pos, idat, w, h = 8, b"", 0, 0
@@ -985,6 +1010,253 @@ def resume_phase(pipe, results: dict) -> dict:
     return launches
 
 
+# the serving phase (phase 10): the engine's buckets and wait, the requests
+# of each check, and where the served artifact trees go (under build/)
+SERVE_BUCKETS = (1, 2, 4)
+SERVE_WAIT_MS = 2000.0
+SERVE_HTTP_SEEDS = (40, 41, 42, 43)
+SERVE_HTTP_STAGGER_S = 0.1  # between the concurrent POSTs: the queue takes them in seed order
+SERVE_ARTIFACT_STEPS = 15
+SERVE_OUT = os.path.join("build", "chip_smoke_serve")
+SERVE_LOAD = ((1, 2), (4, 8))  # (closed-loop clients, requests)
+SERVE_BURST = 8  # clients of one request each, queued before the batcher starts: two groups of 4
+SERVE_FIRST_GROUP_BATCHES = 1.5  # the burst's first group's latency, in batch times, at most
+
+
+def _http(port: int, method: str, path: str, body=None, timeout: float = 600.0):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _ui_once(config, pipe, engine, method: str, path: str, body=None):
+    """One request through ``gui.run_server(once=True)``, retried until the
+    server listens."""
+    import threading
+
+    from guided_attention_tpu_torch.frontends import gui
+
+    port = _free_port()
+    server = threading.Thread(target=gui.run_server, args=(config, pipe),
+                              kwargs=dict(port=port, once=True, engine=engine), daemon=True)
+    server.start()
+    deadline = time.monotonic() + 60
+    while True:
+        try:
+            out = _http(port, method, path, body)
+            break
+        except ConnectionRefusedError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.05)
+    server.join(600)
+    if server.is_alive():
+        raise SystemExit("the web UI did not return after one request")
+    return out
+
+
+def serve_phase(pipe, results: dict) -> dict:
+    """Phase 10: the serving path at full width. Returns the K1-K3 launch
+    counts of the served batch of (a)."""
+    import base64
+    import shutil
+    import threading
+
+    import torch
+
+    from guided_attention_tpu_torch import perf_server, workload
+    from guided_attention_tpu_torch.config import RunConfig
+    from guided_attention_tpu_torch.frontends import gui
+    from guided_attention_tpu_torch.frontends.server import BatchingEngine, make_server
+    from guided_attention_tpu_torch.ops.flash_attention import LAUNCHES, reset_launches
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    card = results["card"]
+    shutil.rmtree(SERVE_OUT, ignore_errors=True)
+    steps = dict(num_inference_steps=workload.STEPS)
+    p0, p1 = workload.BATCH_PROMPTS
+
+    def same_images(name, got, want):
+        check_same(name, [torch.from_numpy(g.images_u8) for g in got] + [torch.from_numpy(g.latents) for g in got],
+                   [torch.from_numpy(w.images_u8) for w in want] + [torch.from_numpy(w.latents) for w in want], results)
+
+    # ---- (a) the engine against the runner: three requests, one bucket-4
+    # batch with the last request repeated
+    reqs = [(p0, workload.TIMED_SEED), (p0, workload.TIMED_SEED + 1), (p1, workload.TIMED_SEED + 2)]
+    engine = BatchingEngine(pipe, buckets=SERVE_BUCKETS, max_wait_ms=SERVE_WAIT_MS, _start_thread=False)
+    tickets = [engine.submit(p, seed=s, **steps) for p, s in reqs]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    engine._thread.start()
+    served = [t.result(timeout=600) for t in tickets]
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {name: LAUNCHES[name] for name in MAIN_PATH_KERNELS}
+    engine.close()
+    stats = engine.snapshot()
+    if stats["batch_sizes"] != {4: 1} or stats["padded_samples"] != 1 or stats["errors"]:
+        raise SystemExit(f"serving (a): expected one bucket-4 batch with one padded sample, stats {stats}")
+    seeds = [s for _, s in reqs] + [reqs[-1][1]]
+    want = pipe.generate_batch(seeds, meta_prompts=[p for p, _ in reqs] + [reqs[-1][0]], capture_diagnostics=False,
+                               **steps)
+    same_images("served batch of three (padded to 4) against generate_batch", served, want[:3])
+    for name, count in launches.items():
+        if count <= 0:
+            raise SystemExit(f"kernel {name} was not launched in the served batch")
+    out["engine"] = {"requests": len(reqs), "batch_s": sec, "s_per_image": sec / len(reqs),
+                     "latency_s": stats.get("latency_s"), "last_batch_s": stats["last_batch_s"],
+                     "batch_sizes": stats["batch_sizes"], "padded_samples": stats["padded_samples"],
+                     "launches": launches}
+    log(f"serving (a): one bucket-4 batch (3 requests, 1 padded): {sec:.3f} s from the thread's start to the last "
+        f"result (of it up to {SERVE_WAIT_MS / 1000:.0f} s of group formation, max_wait_ms), the batch "
+        f"{stats['last_batch_s']} s; bitwise equal to generate_batch; launches {json.dumps(launches)} ({card})")
+
+    # ---- (b) HTTP: four concurrent requests of the main path
+    engine = BatchingEngine(pipe, buckets=SERVE_BUCKETS, max_wait_ms=SERVE_WAIT_MS)
+    server = make_server(engine, host="127.0.0.1", port=0, artifact_dir=SERVE_OUT)
+    port = server.server_address[1]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    calls = []  # the seeds and prompts of each batch the engine dispatched
+    dispatch_batch = pipe.dispatch_batch
+
+    def recording_dispatch(seeds, **kw):
+        calls.append((list(seeds), kw.get("meta_prompt"), kw.get("meta_prompts")))
+        return dispatch_batch(seeds, **kw)
+
+    pipe.dispatch_batch = recording_dispatch
+    try:
+        status, body = _http(port, "GET", "/healthz")
+        health = json.loads(body)
+        if status != 200 or health.get("device_name") != torch.cuda.get_device_name(0):
+            raise SystemExit(f"/healthz: {status} {health}")
+        replies = {}
+
+        def post(seed):
+            replies[seed] = _http(port, "POST", "/generate", dict(meta_prompt=workload.META_PROMPT, seed=seed, **steps))
+
+        posts = []
+        t0 = time.perf_counter()
+        for seed in SERVE_HTTP_SEEDS:
+            posts.append(threading.Thread(target=post, args=(seed,)))
+            posts[-1].start()
+            time.sleep(SERVE_HTTP_STAGGER_S)
+        for t in posts:
+            t.join(600)
+        http_s = time.perf_counter() - t0
+        bad = {s: r[0] for s, r in replies.items() if r[0] != 200}
+        if len(replies) != len(SERVE_HTTP_SEEDS) or bad:
+            raise SystemExit(f"serving (b): responses {bad or sorted(replies)}")
+        http_stats = json.loads(_http(port, "GET", "/stats")[1])
+        if http_stats["batch_sizes"] != {"4": 1} or len(calls) != 1:
+            raise SystemExit(f"serving (b): expected one bucket-4 batch, stats {http_stats}, calls {calls}")
+        batch_seeds = calls[0][0]
+        log(f"  HTTP: four concurrent requests formed one batch of seeds {batch_seeds} in {http_s:.3f} s")
+        want = {s: o for s, o in zip(batch_seeds, pipe.generate_batch(
+            batch_seeds, meta_prompt=workload.META_PROMPT, capture_diagnostics=False, **steps))}
+        got = []
+        for seed in SERVE_HTTP_SEEDS:
+            reply = json.loads(replies[seed][1])
+            img = decode_png(base64.b64decode(reply["image_png_b64"]), f"image_png_b64 of seed {seed}")
+            got.append(torch.from_numpy(img.copy()))
+        check_same("HTTP responses' PNG pixels against generate_batch of their batch",
+                   got, [torch.from_numpy(want[s].images_u8[0]) for s in SERVE_HTTP_SEEDS], results)
+        codes = [_http(port, "POST", "/generate", b)[0] for b in ({"meta_prompt": ""},
+                                                                   {"meta_prompt": workload.META_PROMPT, "nope": 1})]
+        if codes != [400, 400]:
+            raise SystemExit(f"serving (b): malformed requests got {codes}, not 400")
+        status, body = _http(port, "POST", "/generate", dict(meta_prompt=workload.META_PROMPT, seed=CLI_SEEDS[0],
+                                                              num_inference_steps=SERVE_ARTIFACT_STEPS,
+                                                              save_artifacts=True))
+        reply = json.loads(body)
+        tree = reply.get("artifacts_path")
+        files = [os.path.join(d, f) for d, _, fs in os.walk(SERVE_OUT) for f in fs]
+        logs, maps = (sum(k in os.path.basename(f) for f in files) for k in (".txt", "_attnmap_"))
+        if status != 200 or not tree or not os.path.exists(tree) or "artifacts_error" in reply or not logs or maps < 2:
+            raise SystemExit(f"serving (b): save_artifacts {status} {reply.get('artifacts_error')}, {len(files)} files "
+                             f"({logs} logs, {maps} maps)")
+        if (read_png(tree) != decode_png(base64.b64decode(reply["image_png_b64"]))).any():
+            raise SystemExit("serving (b): the artifact tree's image differs from the response's")
+        log(f"  HTTP: /healthz {health}; malformed requests {codes}; save_artifacts wrote {len(files)} files "
+            f"under {SERVE_OUT}")
+        out["http"] = {"seeds": list(SERVE_HTTP_SEEDS), "batch_seeds": batch_seeds, "s": http_s, "stats": http_stats,
+                       "health": health, "malformed_codes": codes, "artifact_files": len(files)}
+    finally:
+        del pipe.dispatch_batch
+        server.shutdown()
+        server.server_close()
+
+    # ---- (c) the web UI, through the same engine
+    config = RunConfig(output_path=Path(SERVE_OUT) / "ui", n_inference_steps=SERVE_ARTIFACT_STEPS, device="cuda")
+    try:
+        status, page = _ui_once(config, pipe, engine, "GET", "/")
+        if status != 200 or page != (gui.WEB_DIR / "ui.html").read_bytes():
+            raise SystemExit(f"web UI: GET / gave {status}, {len(page)} bytes that are not the port's page")
+        status, body = _ui_once(config, pipe, engine, "POST", "/execute_function", {"variable1": workload.META_PROMPT})
+        ui_png = os.path.join(config.output_path, "static", "output.png")
+        img = read_png(ui_png) if status == 200 and os.path.exists(ui_png) else None
+        if img is None or img.shape != (CLI_IMAGE, CLI_IMAGE, 3) or float(img.std()) <= 0:
+            raise SystemExit(f"web UI: POST /execute_function gave {status} {body[:200]!r}")
+    finally:
+        engine.close()
+    log(f"  web UI: the port's page ({len(page)} bytes), one generation to {ui_png}")
+    out["ui"] = {"page_bytes": len(page), "result": json.loads(body)["result"]}
+
+    # ---- (d) closed-loop load through perf_server
+    engine = BatchingEngine(pipe, buckets=SERVE_BUCKETS, max_wait_ms=perf_server.MAX_WAIT_MS)
+    try:
+        out["load"] = [perf_server.run_load(engine, n, c) for c, n in SERVE_LOAD]
+    finally:
+        engine.close()
+    # the burst: every request queued before the batcher starts, so the
+    # second group waits when the first one's batch returns
+    engine = BatchingEngine(pipe, buckets=SERVE_BUCKETS, max_wait_ms=perf_server.MAX_WAIT_MS, _start_thread=False)
+    rows = []
+    load = threading.Thread(target=lambda: rows.append(perf_server.run_load(engine, SERVE_BURST, SERVE_BURST)))
+    load.start()
+    try:
+        deadline = time.monotonic() + 120
+        while engine.snapshot()["queued"] < SERVE_BURST and load.is_alive() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        engine._thread.start()
+        load.join(600)
+    finally:
+        engine.close()
+    if not rows:
+        raise SystemExit(f"serving (d): the burst of {SERVE_BURST} did not complete")
+    out["load"] += rows
+    batch_s_per_image = results["batch"]["s_per_image"]
+    for row in out["load"]:
+        log("  perf_server " + perf_server.report(row, card) + f"; phase 6's batch of 4: {batch_s_per_image:.3f} "
+            "s/image")
+    burst = out["load"][-1]
+    first = burst["latency_s"]["min"] / burst["last_batch_s"]
+    if burst["batch_sizes"] != {4: 2} or first > SERVE_FIRST_GROUP_BATCHES:
+        raise SystemExit(f"serving (d): in the burst of {SERVE_BURST} the first group took {first:.2f} batch times "
+                         f"(at most {SERVE_FIRST_GROUP_BATCHES}), batch sizes {burst['batch_sizes']}")
+    log(f"  the burst of {SERVE_BURST}: the first group delivered in {first:.3f} batch times")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"serving phase: {out['phase_s']:.1f} s")
+    results["serve"] = out
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1097,14 +1369,18 @@ def main() -> int:
     # ---- 9. resumable runs and native checkpoints
     resumed_launches = resume_phase(pipe, results)
 
+    # ---- 10. serving
+    serve_launches = serve_phase(pipe, results)
+
     for row in kernels:
         row["launches"] = launches[row["name"]]
         if row["name"] in batch_launches:
             row["batch_launches"] = batch_launches[row["name"]]
             row["cli_launches"] = cli_launches[row["name"]]
             row["resumed_launches"] = resumed_launches[row["name"]]
+            row["serve_launches"] = serve_launches[row["name"]]
 
-    # ---- 10. the kernels line; exponentials are operations: the line names
+    # ---- 11. the kernels line; exponentials are operations: the line names
     # the two kinds of bound
     for row in kernels:
         for r in (row, row.get("batch_shape") or {}):

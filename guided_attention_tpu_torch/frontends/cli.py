@@ -16,9 +16,11 @@ Usage:
   python -m guided_attention_tpu_torch.frontends.cli --meta_prompt "a [robot:.6,.3,.4,.55] and a [vase:0,.3,.4,.55]" --seeds 28 42
   python -m guided_attention_tpu_torch.frontends.cli --device cpu --model micro --n_inference_steps 3 --meta_prompt ...
 
-Not in the port yet, and refused with NotImplementedError: --mesh_shape,
---num_processes > 1 (several GPUs, ROADMAP.md Queue 1 item 5) and
---interactive (the web UI, item 8).
+``--interactive true`` serves the web UI instead (``frontends/gui.py``,
+http://127.0.0.1:5000), through the serving engine.
+
+Not in the port yet, and refused with NotImplementedError: --mesh_shape and
+--num_processes > 1 (several GPUs, ROADMAP.md Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -83,7 +85,6 @@ def check_supported(config: RunConfig) -> None:
     refused = [
         (config.mesh_shape, "--mesh_shape (data and tensor parallelism over several GPUs)", 5),
         ((config.num_processes or 1) > 1, "--num_processes > 1 (several processes and GPUs)", 5),
-        (config.interactive, "--interactive (the web UI, frontends/gui.py)", 8),
     ]
     for on, what, item in refused:
         if on:
@@ -242,11 +243,16 @@ def execute(config: RunConfig, pipe, hyperparam_iterations: Optional[List[Dict[s
 
 def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = None):
     """Parse ``argv`` (default: the command line), build the pipeline and
-    run the sweep; ``stats`` goes to ``execute``."""
+    run the sweep, or serve the web UI with ``--interactive``; ``stats``
+    goes to ``execute``."""
     config = parse_args(argv)
     check_supported(config)
     pipe = setup(config)
-    if config.profile_dir:
+    if config.interactive:
+        from guided_attention_tpu_torch.frontends.gui import run_server
+
+        run_server(config, pipe)
+    elif config.profile_dir:
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]

@@ -23,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -194,6 +195,14 @@ def _hp_key(hp: HyperParams):
     )
 
 
+def _cache_put(lock: threading.Lock, cache: Dict[Any, Any], key, value, limit: int) -> None:
+    """Insert into a bounded cache, dropping its oldest entry when full."""
+    with lock:
+        if key not in cache and len(cache) >= limit:
+            cache.pop(next(iter(cache)))
+        cache[key] = value
+
+
 _UNHASHABLE_OPTS = ("annotations", "hp", "thresholds", "scale_range")
 
 
@@ -280,6 +289,10 @@ class GuidedAttentionPipeline:
         self.registry = registry or default_registry()
         self._prepare_cache: Dict[Any, Any] = {}
         self._stack_cache: Dict[Any, Any] = {}  # stacked (spec, emb) per prompt set
+        # guards the two caches' reads and writes, not the work between them:
+        # the serving engine prepares requests in handler threads while its
+        # batcher thread runs a batch (frontends/server.py)
+        self._cache_lock = threading.Lock()
         self._registry_version = 0
 
     def register_custom_loss(self, name: str, loss) -> None:
@@ -290,14 +303,13 @@ class GuidedAttentionPipeline:
     def _prepare(self, opts: PrepareOptions):
         cache_key = opts.cache_key(self._registry_version)
         if cache_key is not None:
-            hit = self._prepare_cache.get(cache_key)
+            with self._cache_lock:
+                hit = self._prepare_cache.get(cache_key)
             if hit is not None:
                 return hit
         prepared = self._prepare_uncached(opts)
         if cache_key is not None:
-            if len(self._prepare_cache) >= 64:
-                self._prepare_cache.pop(next(iter(self._prepare_cache)))
-            self._prepare_cache[cache_key] = prepared
+            _cache_put(self._cache_lock, self._prepare_cache, cache_key, prepared, 64)
         return prepared
 
     def _prepare_uncached(self, o: PrepareOptions):
@@ -431,13 +443,12 @@ class GuidedAttentionPipeline:
         hp, _prompt, _anns, _spec, statics, sched, arrays, _emb = prepared[0]
         ck = opts.cache_key(self._registry_version)
         stack_key = None if ck is None else (tuple(meta_prompts) if meta_prompts is not None else len(seeds), ck)
-        stacked = self._stack_cache.get(stack_key) if stack_key is not None else None
+        with self._cache_lock:
+            stacked = self._stack_cache.get(stack_key) if stack_key is not None else None
         if stacked is None:
             stacked = (stack_specs([p[3] for p in prepared]), torch.stack([p[7] for p in prepared]))
             if stack_key is not None:
-                if len(self._stack_cache) >= 16:
-                    self._stack_cache.pop(next(iter(self._stack_cache)))
-                self._stack_cache[stack_key] = stacked
+                _cache_put(self._cache_lock, self._stack_cache, stack_key, stacked, 16)
         spec, emb = stacked
         per_out = [(p[1], p[2], p[3]) for p in prepared]
         return per_out, hp, spec, statics, sched, arrays, emb

@@ -61,6 +61,10 @@ def load_library() -> ctypes.CDLL:
         lib.aw_submit_rgb8.argtypes = [P, ctypes.POINTER(ctypes.c_ubyte), I, I, ctypes.c_char_p, I]
         lib.aw_write_rgb8.restype = I
         lib.aw_write_rgb8.argtypes = [ctypes.POINTER(ctypes.c_ubyte), I, I, ctypes.c_char_p, I]
+        lib.aw_encode_rgb8.restype = I
+        lib.aw_encode_rgb8.argtypes = [ctypes.POINTER(ctypes.c_ubyte), I, I, I,
+                                       ctypes.POINTER(ctypes.POINTER(ctypes.c_ubyte)), ctypes.POINTER(ctypes.c_size_t)]
+        lib.aw_free.argtypes = [ctypes.POINTER(ctypes.c_ubyte)]
         lib.aw_pending.restype = I
         lib.aw_pending.argtypes = [P]
         lib.aw_flush.restype = I
@@ -88,6 +92,21 @@ def write_png(rgb, path) -> bool:
     arr = to_u8(rgb)
     return bool(lib.aw_write_rgb8(arr.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)), arr.shape[0], arr.shape[1],
                                   str(path).encode(), PNG_LEVEL))
+
+
+def png_bytes(rgb) -> bytes:
+    """One [H, W, 3] image (uint8, or floats in [0, 1]) encoded to PNG in
+    memory: the bytes ``write_png`` writes for it."""
+    lib = load_library()
+    arr = to_u8(rgb)
+    buf, n = ctypes.POINTER(ctypes.c_ubyte)(), ctypes.c_size_t()
+    if not lib.aw_encode_rgb8(arr.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)), arr.shape[0], arr.shape[1],
+                              PNG_LEVEL, ctypes.byref(buf), ctypes.byref(n)):
+        raise MemoryError(f"could not encode a {arr.shape} image to PNG")
+    try:
+        return ctypes.string_at(buf, n.value)
+    finally:
+        lib.aw_free(buf)
 
 
 class AsyncArtifactWriter:

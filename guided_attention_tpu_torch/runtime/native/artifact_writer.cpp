@@ -6,6 +6,10 @@
 //   aw_submit_gray(handle, data_f32, h, w, path, apply_viridis, level)
 //   aw_submit_rgb8(handle, data_u8, h, w, path, level)
 //   aw_write_rgb8(data_u8, h, w, path, level) -> 1 on success (synchronous)
+//   aw_encode_rgb8(data_u8, h, w, level, &out, &len) -> 1 on success: the
+//                      PNG bytes write_rgb8 would write, in a buffer that
+//                      aw_free releases (synchronous)
+//   aw_free(buffer)
 //   aw_pending(handle) -> queued + running jobs
 //   aw_flush(handle)   -> block until none is left; returns the number of
 //                         jobs that failed to write since the last flush
@@ -20,6 +24,7 @@
 #include <condition_variable>
 #include <cstdint>
 #include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <deque>
 #include <functional>
@@ -57,7 +62,7 @@ void put_chunk(std::vector<uint8_t>& out, const char type[4], const uint8_t* dat
   put_u32(out, static_cast<uint32_t>(crc32(0, out.data() + start, static_cast<uInt>(4 + len))));
 }
 
-bool write_png_rgb8(const std::string& path, const uint8_t* rgb, int h, int w, int level) {
+bool encode_png_rgb8(const uint8_t* rgb, int h, int w, int level, std::vector<uint8_t>& png) {
   std::vector<uint8_t> raw;
   raw.reserve(static_cast<size_t>(h) * (static_cast<size_t>(w) * 3 + 1));
   for (int y = 0; y < h; ++y) {
@@ -67,7 +72,7 @@ bool write_png_rgb8(const std::string& path, const uint8_t* rgb, int h, int w, i
   std::vector<uint8_t> idat;
   if (!zlib_stream(raw, level, idat)) return false;
 
-  std::vector<uint8_t> png;
+  png.clear();
   static const uint8_t sig[8] = {137, 80, 78, 71, 13, 10, 26, 10};
   png.insert(png.end(), sig, sig + 8);
   uint8_t ihdr[13];
@@ -83,7 +88,12 @@ bool write_png_rgb8(const std::string& path, const uint8_t* rgb, int h, int w, i
   put_chunk(png, "IHDR", ihdr, 13);
   put_chunk(png, "IDAT", idat.data(), idat.size());
   put_chunk(png, "IEND", nullptr, 0);
+  return true;
+}
 
+bool write_png_rgb8(const std::string& path, const uint8_t* rgb, int h, int w, int level) {
+  std::vector<uint8_t> png;
+  if (!encode_png_rgb8(rgb, h, w, level, png)) return false;
   FILE* f = std::fopen(path.c_str(), "wb");
   if (!f) return false;
   size_t written = std::fwrite(png.data(), 1, png.size(), f);
@@ -254,6 +264,20 @@ void aw_submit_rgb8(void* h, const uint8_t* data, int height, int width, const c
 int aw_write_rgb8(const uint8_t* data, int height, int width, const char* path, int level) {
   return write_png_rgb8(std::string(path), data, height, width, level) ? 1 : 0;
 }
+
+int aw_encode_rgb8(const uint8_t* data, int height, int width, int level, uint8_t** out, size_t* len) {
+  std::vector<uint8_t> png;
+  *out = nullptr;
+  *len = 0;
+  if (!encode_png_rgb8(data, height, width, level, png)) return 0;
+  *out = static_cast<uint8_t*>(std::malloc(png.size()));
+  if (*out == nullptr) return 0;
+  std::memcpy(*out, png.data(), png.size());
+  *len = png.size();
+  return 1;
+}
+
+void aw_free(uint8_t* buffer) { std::free(buffer); }
 
 int aw_pending(void* h) { return static_cast<Writer*>(h)->Pending(); }
 

@@ -13,7 +13,8 @@ determinism repair, on the CPU.
   relative paths, run logs and decoded pixels (no JAX program is built:
   JAX's execute drives a stand-in pipeline that returns the port's
   outputs and decodes with the port's VAE).
-* Every option the port does not run yet raises NotImplementedError.
+* Every option the port does not run yet raises NotImplementedError, and
+  ``--interactive`` hands over to the web UI (``gui.run_server``).
 * The smoothing's reflect padding, rebuilt from slices (the CUDA backward of
   ``F.pad(mode="reflect")`` accumulates with atomics), equals ``F.pad``'s
   and its gradient.
@@ -243,7 +244,6 @@ def test_profile_dir_writes_a_chrome_trace(tmp_path):
     ["--mesh_shape", '{"data": 2}'],
     ["--num_processes", "2"],
     ["--checkpoint_every", "5", "--mesh_shape", '{"data": 2}'],  # resumable runs are in; over several GPUs not
-    ["--interactive", "true"],
 ])
 def test_unsupported_options_raise(flag, tmp_path):
     argv = ["--meta_prompt", META, "--model", "micro", "--device", "cpu", "--output_path", str(tmp_path)] + flag
@@ -251,6 +251,23 @@ def test_unsupported_options_raise(flag, tmp_path):
         tcli.main(argv)
     with pytest.raises(NotImplementedError):
         tcli.execute(tcli.parse_args(argv), pipe=None)
+
+
+def test_interactive_serves_the_web_ui(tmp_path, monkeypatch):
+    """``--interactive true`` hands the config and the pipeline to
+    ``gui.run_server``, as the JAX CLI does, and runs no sweep."""
+    from guided_attention_tpu_torch.frontends import gui
+
+    served = []
+    monkeypatch.setattr(gui, "run_server", lambda config, pipe: served.append((config, pipe)))
+    monkeypatch.setattr(tcli, "execute", lambda *a, **k: pytest.fail("--interactive ran the sweep"))
+    argv = ["--meta_prompt", "", "--model", "micro", "--device", "cpu", "--dtype", "float32", "--output_path",
+            str(tmp_path), "--interactive", "true"]
+    tcli.main(argv)
+    (config, pipe), = served
+    assert config.interactive and config.output_path == tmp_path
+    assert isinstance(pipe, trunner.GuidedAttentionPipeline) and pipe.sd.config.name == "micro"
+    assert pipe.sd.device.type == "cpu"
 
 
 # ---- the guided path's determinism (the reflect padding's backward) ----

@@ -86,7 +86,7 @@ def test_port_package_has_every_counterpart_module():
         "guidance.losses", "guidance.custom", "ops.attention_variants", "runtime.flops",
         "runtime.timing", "perf_attn_kernel", "workload", "profile", "perf_batch",
         "runtime.artifacts", "runtime.native", "viewers.vis", "frontends.cli", "runtime.serialization",
-        "runtime.checkpoint", "models.io",
+        "runtime.checkpoint", "models.io", "frontends.server", "frontends.gui", "perf_server",
     ):
         assert want in names, want
     for src in ("flash_self_fwd.cu", "flash_self_bwd.cu", "cross_attention_map.cu", "flash_self_fwd_v1.cu",
@@ -96,6 +96,8 @@ def test_port_package_has_every_counterpart_module():
     native = os.path.join(PKG_DIR, "runtime", "native")
     assert os.path.exists(os.path.join(native, "artifact_writer.cpp"))
     assert not [n for n in os.listdir(native) if n.endswith(".so")]
+    # the web UI's own copy of the page, read from the port's directory
+    assert os.path.exists(os.path.join(PKG_DIR, "frontends", "web", "ui.html"))
 
 
 def test_default_device_is_cuda_and_does_not_fall_back():

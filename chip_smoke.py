@@ -90,11 +90,28 @@ Phases:
      the last batch's seconds. In the burst two groups of 4 wait at once,
      and the first must be delivered within 1.5 batch times (a loop that
      delivers a group after the next group's dispatch takes two);
- 11. a {"kernels": [...]} line, then the last line
+ 11. SD2.1-base, bf16 at full width (``workload.create(model="sd21")``:
+     head dim 64, linear projections, gelu CLIP, the guidance normalized up
+     to the prompt's end-of-text token): one guidance eval through the
+     kernels against the plain route (phase 4's limits); the 50-step guided
+     image (a warm-up seed, then the timed seed with the counters zeroed
+     just before it): s/image, MFU, peak memory, K1-K3 launches (each must
+     launch), evals, refinements and recursions, a well-formed 512x512
+     image; the 15-step image twice, bitwise equal; ``frontends.cli.main
+     --sd_2_1 true`` (one seed, 15 steps) writing its tree under
+     ``build/``; parity traces (``parity_trace``): the sd21 bf16 trace
+     through the kernels, 10 steps, from the command line and from
+     ``trace(pipe, ...)`` on one saved initial latent, equal at tolerance
+     0; the float32 trace on the plain route against it, printed per key (a
+     reading, not a gate); and micro in float32, 4 steps, on the card and on
+     the CPU from one latent and one stream of re-noise draws, equal at the
+     default tolerances;
+ 12. a {"kernels": [...]} line, then the last line
      {"ok": true, "device": {...}}.
 
 Any failed check or exception exits non-zero before the last line. Weights
-are random (flax-style init from a seed); the compute is SD1.5's. A full
+are random (flax-style init from a seed); the compute is SD1.5's, and
+SD2.1's in phase 11. A full
 log goes to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
@@ -236,13 +253,20 @@ def kernel_phase(results: dict) -> list:
             fns["library_ms"] = library
         return {"library_ms": None, **alternating_ms(fns)}
 
+    def k1_bound(bh, n, d):  # q, k, v, o in bf16, the logsumexp in fp32
+        return bound_ms(pak.fwd_flops(bh, n, d), 4 * bh * n * d * 2 + bh * n * 4, exps=bh * n * n)
+
+    def k2_bound(bh, n, d):  # q, k, v, o, do, dq, dk, dv in bf16, the logsumexp in fp32
+        return bound_ms(pak.bwd_flops(bh, n, d), 8 * bh * n * d * 2 + bh * n * 4, exps=bh * n * n)
+
     kernels = []
-    # ---- K1 forward: SD2.1 D=64, a ragged [3, 1000, 40] (TMA zero-fill and
-    # the -inf key mask), the batch path's CFG call [2*4*8, 4096, 40], eval
-    # call [8, 4096, 40], CFG call [2*8, 4096, 40]
+    # ---- K1 forward: SD2.1 D=64 (CFG call [2*5, 4096, 64], eval call
+    # [5, 4096, 64]), a ragged [3, 1000, 40] (TMA zero-fill and the -inf key
+    # mask), the batch path's CFG call [2*4*8, 4096, 40], eval call
+    # [8, 4096, 40], CFG call [2*8, 4096, 40]
     log("K1 flash_self_fwd")
-    k1_batch = {}
-    for bh, n, d in ((10, 4096, 64), (3, 1000, 40), (64, 4096, 40), (8, 4096, 40), (16, 4096, 40)):
+    k1_batch, k1_sd21 = {}, {}
+    for bh, n, d in ((10, 4096, 64), (5, 4096, 64), (3, 1000, 40), (64, 4096, 40), (8, 4096, 40), (16, 4096, 40)):
         q, k, v = randn(bh, n, d), randn(bh, n, d), randn(bh, n, d)
         scale = d**-0.5
         o, lse = fa.flash_self_fwd(q, k, v, scale)
@@ -258,9 +282,22 @@ def kernel_phase(results: dict) -> list:
                 torch.cuda.synchronize()
                 check_close(f"K1 tiles {fa.K1_TILE_CONFIGS[c]} out [{bh},{n},{d}]", oc, ref, results)
                 check(f"K1 tiles {fa.K1_TILE_CONFIGS[c]} lse [{bh},{n},{d}]", max_err(lc, lse_ref), LSE_TOL, results)
+        if bh == 10:
+            # the SD2.1 path's CFG call: 2 rows x 5 heads at the 64x64 latent
+            q4, k4, v4 = (t.reshape(2, 5, n, d) for t in (q, k, v))
+            b_ms, b_by = k1_bound(bh, n, d)
+            k1_sd21 = {"shape": [bh, n, d], "max_abs_err": max_err(o, ref), "tol": k1_tol,
+                       "lse_max_abs_err": k1_lse_err, "lse_tol": LSE_TOL, "bound_ms": b_ms, "bound_by": b_by,
+                       **timed(lambda: fa.flash_self_fwd(q, k, v, scale), lambda: fa.flash_self_plain(q, k, v, scale),
+                               lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))}
+            del q4, k4, v4
+        elif d == 64:
+            # the SD2.1 path's eval call: its errors beside the CFG call's row
+            k1_sd21["eval_shape"] = {"shape": [bh, n, d], "max_abs_err": max_err(o, ref), "tol": k1_tol,
+                                     "lse_max_abs_err": k1_lse_err, "lse_tol": LSE_TOL}
         if bh == 64:
             q4, k4, v4 = (t.reshape(8, 8, n, d) for t in (q, k, v))
-            b_ms, b_by = bound_ms(pak.fwd_flops(bh, n, d), 4 * bh * n * d * 2 + bh * n * 4, exps=bh * n * n)
+            b_ms, b_by = k1_bound(bh, n, d)
             k1_batch = {"shape": [bh, n, d], "max_abs_err": max_err(o, ref), "tol": k1_tol, "bound_ms": b_ms,
                         "bound_by": b_by,
                         **timed(lambda: fa.flash_self_fwd(q, k, v, scale), lambda: fa.flash_self_plain(q, k, v, scale),
@@ -269,7 +306,7 @@ def kernel_phase(results: dict) -> list:
     # the row and the timings are the CFG call's, the last case above
     k1_err = max_err(o, ref)
     q4, k4, v4 = (t.reshape(2, 8, n, d) for t in (q, k, v))
-    b_ms, b_by = bound_ms(pak.fwd_flops(bh, n, d), 4 * bh * n * d * 2 + bh * n * 4, exps=bh * n * n)
+    b_ms, b_by = k1_bound(bh, n, d)
     kernels.append({
         "name": "flash_self_fwd", "route": "cuda", "path": "main",
         "source": "guided_attention_tpu_torch/csrc/flash_self_fwd.cu",
@@ -279,7 +316,7 @@ def kernel_phase(results: dict) -> list:
         "bound_ms": b_ms, "bound_by": b_by,
         **timed(lambda: fa.flash_self_fwd(q, k, v, scale), lambda: fa.flash_self_plain(q, k, v, scale),
                 lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)),
-        "batch_shape": k1_batch,
+        "batch_shape": k1_batch, "sd21_shape": k1_sd21,
     })
 
     # ---- V1 forward (microbench): the CFG and eval shapes, SD2.1 D=64 and a
@@ -345,7 +382,7 @@ def kernel_phase(results: dict) -> list:
     # plain forward, and run twice for the bits
     log("K2 flash_self_bwd")
     names = ("dq", "dk", "dv")
-    k2_row, k2_batch = None, {}
+    k2_row, k2_batch, k2_sd21 = None, {}, {}
     for bh, n, d in ((5, 4096, 64), (3, 1000, 40), (32, 4096, 40), (8, 4096, 40)):
         q, k, v, do = randn(bh, n, d), randn(bh, n, d), randn(bh, n, d), randn(bh, n, d)
         scale = d**-0.5
@@ -372,8 +409,16 @@ def kernel_phase(results: dict) -> list:
                 check_same(f"K2 tiles {cfg} twice [{bh},{n},{d}]", gc,
                            fa.flash_self_bwd_tiles(q, k, v, o, do, lse, scale, c), results)
         del want
+        if d == 64:  # the SD2.1 path's eval call: 5 heads at the 64x64 latent
+            b_ms, b_by = k2_bound(bh, n, d)
+            _fwd, sdpa_bwd, _grads = pak.sdpa_graphs(q, k, v, do, scale)
+            k2_sd21 = {"shape": [bh, n, d], "max_abs_err": max(errs), "tol": min(tols), "deterministic": True,
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       **timed(lambda: fa.flash_self_bwd(q, k, v, o, do, lse, scale),
+                               lambda: fa.flash_self_bwd_plain(q, k, v, o, do, lse, scale), sdpa_bwd)}
+            del _fwd, sdpa_bwd, _grads
         if bh == 32:
-            b_ms, b_by = bound_ms(pak.bwd_flops(bh, n, d), 8 * bh * n * d * 2 + bh * n * 4, exps=bh * n * n)
+            b_ms, b_by = k2_bound(bh, n, d)
             _fwd, sdpa_bwd, _grads = pak.sdpa_graphs(q, k, v, do, scale)
             k2_batch = {"shape": [bh, n, d], "max_abs_err": max(errs), "tol": min(tols), "deterministic": True,
                         "bound_ms": b_ms, "bound_by": b_by,
@@ -382,7 +427,7 @@ def kernel_phase(results: dict) -> list:
             del _fwd, sdpa_bwd, _grads
         if (bh, n, d) == pak.BWD_SHAPE:
             # one exponential per pair, what the algorithm needs (K2 computes two)
-            b_ms, b_by = bound_ms(pak.bwd_flops(bh, n, d), 8 * bh * n * d * 2 + bh * n * 4, exps=bh * n * n)
+            b_ms, b_by = k2_bound(bh, n, d)
             _fwd, sdpa_bwd, _grads = pak.sdpa_graphs(q, k, v, do, scale)
             k2_row = {
                 "name": "flash_self_bwd", "route": "cuda", "path": "main",
@@ -393,7 +438,7 @@ def kernel_phase(results: dict) -> list:
                 **timed(lambda: fa.flash_self_bwd(q, k, v, o, do, lse, scale),
                         lambda: fa.flash_self_bwd_plain(q, k, v, o, do, lse, scale), sdpa_bwd),
             }
-    k2_row["batch_shape"] = k2_batch
+    k2_row["batch_shape"], k2_row["sd21_shape"] = k2_batch, k2_sd21
     kernels.append(k2_row)
 
     # ---- W1 backward (microbench): SD2.1 D=64, a ragged [3, 1000, 40] and
@@ -456,7 +501,12 @@ def kernel_phase(results: dict) -> list:
     # atomics). The row is the eval's [1, 8, 256, 160] with 77 keys.
     log("K3 cross_attention_map_fwd")
     k3_shapes = ((1, 8, 256, 160), (4, 8, 256, 160), (2, 8, 256, 160), (1, 20, 256, 64), (1, 5, 100, 40))
-    k3_d64, k3_batch = {}, {}
+
+    def k3_bound(b, h, nq, nk, d):
+        return bound_ms(4.0 * b * h * nq * nk * d, (2 * b * h * nq * d + 2 * b * h * nk * d) * 2 + b * nq * nk * 4,
+                        exps=b * h * nq * nk)
+
+    k3_sd21, k3_batch = {}, {}
     for (b, h, nq, d), nk in ((shape, nk) for shape in k3_shapes[::-1] for nk in (33, 77)):
         q, k, v = randn(b, h, nq, d), randn(b, h, nk, d), randn(b, h, nk, d)
         scale = d**-0.5
@@ -475,11 +525,14 @@ def kernel_phase(results: dict) -> list:
             if not label:
                 k3_main = {"max_abs_err": max_err(o, o_ref), "tol": k3_tol, "map_max_abs_err": e_map, "map_tol": 1e-5}
         if (b, h, nq, d, nk) == (1, 20, 256, 64, 77):
-            k3_d64 = {"shape": [b, h, nq, nk, d], **graph_alternating_ms(
-                {"graph_ms": runs[0][1], "plain_graph_ms": lambda: fa.cross_attention_map_plain(q, k, v, scale)})}
+            # the SD2.1 path's eval call; ms is the CUDA-graph burst's
+            b_ms, b_by = k3_bound(b, h, nq, nk, d)
+            graphs = graph_alternating_ms(
+                {"graph_ms": runs[0][1], "plain_graph_ms": lambda: fa.cross_attention_map_plain(q, k, v, scale)})
+            k3_sd21 = {"shape": [b, h, nq, nk, d], **k3_main, "bound_ms": b_ms, "bound_by": b_by, **graphs,
+                       "ms": graphs["graph_ms"], "plain_ms": graphs["plain_graph_ms"], "library_ms": None}
         if (b, h, nq, d, nk) == (4, 8, 256, 160, 77):
-            b_ms, b_by = bound_ms(4.0 * b * h * nq * nk * d,
-                                  (2 * b * h * nq * d + 2 * b * h * nk * d) * 2 + b * nq * nk * 4, exps=b * h * nq * nk)
+            b_ms, b_by = k3_bound(b, h, nq, nk, d)
             k3_batch = {"shape": [b, h, nq, nk, d], **k3_main, "bound_ms": b_ms, "bound_by": b_by, **graph_alternating_ms(
                 {"graph_ms": runs[0][1], "plain_graph_ms": lambda: fa.cross_attention_map_plain(q, k, v, scale)})}
     # the last case above: [1, 8, 256, 160], 77 keys
@@ -493,9 +546,7 @@ def kernel_phase(results: dict) -> list:
     gb_ = torch.autograd.grad((ob.float() * wo).sum() + (mb * wm).sum(), (qb, kb, vb))
     for nm, a_, b_ in zip(("dq", "dk", "dv"), ga_, gb_):
         check_close(f"K3 {nm}", a_, b_, results)
-    flops = 4.0 * b * h * nq * nk * d
-    nbytes = (2 * b * h * nq * d + 2 * b * h * nk * d) * 2 + b * nq * nk * 4
-    b_ms, b_by = bound_ms(flops, nbytes, exps=b * h * nq * nk)
+    b_ms, b_by = k3_bound(b, h, nq, nk, d)
     kernel, plain = (lambda: fa.cross_attention_map_fwd(q, k, v, scale)), (lambda: fa.cross_attention_map_plain(q, k, v, scale))
     # K3 runs in microseconds, faster than the host queues it: an event
     # burst times the host's launch path; a CUDA-graph burst the card
@@ -509,14 +560,15 @@ def kernel_phase(results: dict) -> list:
         "config": fa.K3_TILE_CONFIGS[fa.K3_MAIN_CONFIG], "deterministic": True,
         "shape": [b, h, nq, nk, d], **k3_main,
         "bound_ms": b_ms, "bound_by": b_by,
-        **timed(kernel, plain), **graphs, "d64": k3_d64, "batch_shape": k3_batch,
+        **timed(kernel, plain), **graphs, "sd21_shape": k3_sd21, "batch_shape": k3_batch,
     })
     return kernels
 
 
-def eval_phase(sd, pipe, results: dict) -> None:
-    """Phase 4: one full-width guidance eval through the kernels vs the
-    plain attention path, same latent and prompt."""
+def eval_phase(sd, pipe, results: dict) -> dict:
+    """One full-width guidance eval of ``pipe``'s bundle (phase 4: sd15,
+    phase 11: sd21) through the kernels vs the plain attention path, same
+    latent and prompt; returns the two losses and the relative distances."""
     import torch
 
     from guided_attention_tpu_torch import workload
@@ -524,9 +576,12 @@ def eval_phase(sd, pipe, results: dict) -> None:
     from guided_attention_tpu_torch.pipeline import _Loop
     from guided_attention_tpu_torch.runner import PrepareOptions
 
-    hp, _p, _a, spec, statics, sched, arrays, emb = pipe._prepare(PrepareOptions(meta_prompt=workload.META_PROMPT))
+    name = sd.config.name
+    hp, _p, _a, spec, statics, sched, arrays, emb = pipe._prepare(
+        PrepareOptions(meta_prompt=workload.META_PROMPT, sd_2_1=workload.is_sd21(pipe)))
     g = torch.Generator(device="cuda").manual_seed(5)
-    lat = torch.randn((1, 64, 64, 4), generator=g, device="cuda").to(torch.bfloat16)
+    s = sd.config.latent_size
+    lat = torch.randn((1, s, s, sd.config.unet.in_channels), generator=g, device="cuda").to(torch.bfloat16)
     t = int(sched.timesteps[0])
     cfg = sd.unet.config
     outs = {}
@@ -538,17 +593,20 @@ def eval_phase(sd, pipe, results: dict) -> None:
         outs[route] = (float(loss), grad.float())
     sd.unet.config = cfg
     (lk, gk), (lp, gp) = outs["kernels"], outs["plain"]
-    log(f"  eval loss kernels={lk:.6f} plain={lp:.6f}")
+    log(f"  {name} eval loss kernels={lk:.6f} plain={lp:.6f}")
     # bf16 network on both routes: the attention outputs differ at bf16
     # rounding, which the eval's forward and backward carry along. Measured
-    # on an H100: loss within 5e-7 relative, gradient within 1.3-1.6% of
-    # its largest entry; the limits leave 2.5x room on the gradient and
-    # ~200x on the loss (its maps come from fp32 scores on both routes).
-    check("eval loss (rel)", abs(lk - lp) / abs(lp), 1e-4, results)
-    gerr = max_err(gk, gp)
-    check("eval grad (rel to max|grad|)", gerr / float(gp.abs().max()), 0.04, results)
+    # on an H100: sd15's loss within 4.2-5.0e-5 relative and its gradient
+    # within 1.3-2.1% of its largest entry, sd21's within 3.8e-6 and 1.5%;
+    # the limits leave 2x room on sd15's loss and gradient (its maps come
+    # from fp32 scores on both routes).
+    loss_rel = abs(lk - lp) / abs(lp)
+    check(f"{name} eval loss (rel)", loss_rel, 1e-4, results)
+    grad_rel = max_err(gk, gp) / float(gp.abs().max())
+    check(f"{name} eval grad (rel to max|grad|)", grad_rel, 0.04, results)
     if not (torch.isfinite(gk).all() and float(gk.abs().max()) > 0):
-        raise SystemExit("eval gradient through the kernels is not finite and nonzero")
+        raise SystemExit(f"{name} eval gradient through the kernels is not finite and nonzero")
+    return {"loss_kernels": lk, "loss_plain": lp, "loss_rel": loss_rel, "grad_rel_to_max": grad_rel}
 
 
 def rel_max_err(out, ref) -> float:
@@ -691,7 +749,8 @@ def batch_phase(pipe, results: dict) -> dict:
 CLI_SEEDS = (28, 42)
 CLI_DIAG_STEPS = 15
 CLI_OUT = os.path.join("build", "chip_smoke_cli")
-CLI_IMAGE = 512  # sd15's image side
+CLI_IMAGE = 512  # sd15's and sd21's image side
+SD21_SHORT_STEPS = 15  # the sd21 CLI run's, and phase 11's reproducibility runs'
 
 
 def read_png(path: str):
@@ -743,8 +802,9 @@ def cli_names():
 
 
 def cli_phase(results: dict) -> dict:
-    """Phase 8: ``frontends.cli.main`` on the card, its launches and its
-    artifact trees. Returns the K1-K3 launch counts of the first sweep."""
+    """Phase 8: ``frontends.cli.main`` on the card (sd15, and sd21 with
+    ``--sd_2_1``), its launches and its artifact trees. Returns the K1-K3
+    launch counts of the first sweep."""
     import shutil
 
     import numpy as np
@@ -768,6 +828,9 @@ def cli_phase(results: dict) -> dict:
         ("diagnostic", CLI_SEEDS[:1], ["--meta_prompt", workload.META_PROMPT, "--seeds", str(CLI_SEEDS[0]),
                                        "--n_inference_steps", str(CLI_DIAG_STEPS), "--diagnostic_level", "1",
                                        "--save_individual_ca_maps", "true"]),
+        # SD2.1-base (512 px, as sd15): the CLI builds its own sd21 bundle
+        ("sd21", CLI_SEEDS[:1], ["--meta_prompt", workload.META_PROMPT, "--seeds", str(CLI_SEEDS[0]),
+                                 "--sd_2_1", "true", "--n_inference_steps", str(SD21_SHORT_STEPS)]),
     )
     out, first_launches = {}, None
     for name, seeds, argv in runs:
@@ -1257,6 +1320,195 @@ def serve_phase(pipe, results: dict) -> dict:
     return launches
 
 
+# the SD2.1 phase (phase 11): the parity traces' steps, and where its files
+# go (under build/)
+SD21_TRACE_STEPS = 10
+MICRO_TRACE_STEPS = 4
+MICRO_TRACE_SEED = 7
+SD21_OUT = os.path.join("build", "chip_smoke_sd21")
+
+
+class HostNoise:
+    """Re-noise draws from a seeded CPU generator, moved to ``device``: the
+    same numbers on the card and on the CPU (their own generators differ)."""
+
+    def __init__(self, seed: int, shape, device):
+        import torch
+
+        self.gen = torch.Generator().manual_seed(seed)
+        self.shape, self.device = tuple(shape), device
+
+    def __call__(self, kind: str, i: int, r):
+        import torch
+
+        return torch.randn(self.shape, generator=self.gen, dtype=torch.float32).to(self.device)
+
+
+def sd21_phase(results: dict) -> dict:
+    """Phase 11: SD2.1-base (head dim 64, linear projections, gelu CLIP, EOT
+    normalization) at full width on the card, bf16. Returns the K1-K3
+    launch counts of the timed image."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from guided_attention_tpu_torch import parity_trace as pt
+    from guided_attention_tpu_torch import workload
+    from guided_attention_tpu_torch.models.bundle import StableDiffusion
+    from guided_attention_tpu_torch.ops.flash_attention import LAUNCHES, reset_launches
+    from guided_attention_tpu_torch.runner import GuidedAttentionPipeline
+    from guided_attention_tpu_torch.runtime import flops
+
+    t_phase = time.perf_counter()
+    card = results["card"]
+    out: dict = {}
+    shutil.rmtree(SD21_OUT, ignore_errors=True)
+    os.makedirs(SD21_OUT)
+    t0 = time.perf_counter()
+    pipe = workload.create("cuda", model="sd21")
+    sd = pipe.sd
+    torch.cuda.synchronize()
+    out["create_s"] = time.perf_counter() - t0
+    log(f"sd21 bf16 random init on the card: {out['create_s']:.1f} s")
+
+    # ---- (1) one full-width guidance eval, kernels against the plain route
+    out["eval"] = eval_phase(sd, pipe, results)
+
+    # ---- (2) one guided image: a warm-up seed, then the timed seed
+    t0 = time.perf_counter()
+    workload.generate(pipe, workload.WARMUP_SEED)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    img_out = workload.generate(pipe, workload.TIMED_SEED)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {name: LAUNCHES[name] for name in MAIN_PATH_KERNELS}
+    d = img_out.diagnostics
+    work = flops.generation_flops(sd.unet.config, d, workload.STEPS)
+    img = img_out.images_u8
+    image = {
+        "s_per_image": sec, "warmup_s": warm, "steps": workload.STEPS,
+        "n_evals_total": int(d.n_evals.sum()), "n_evals_step0": int(d.n_evals[0]),
+        "refine_iters_step0": int(d.refine_iters[0]), "recursions_0_14": d.recursions[:15].tolist(),
+        "image_shape": list(img.shape), "latents_finite": bool(np.isfinite(img_out.latents).all()),
+        "image_std": float(img.std()), "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "unet_tflop": work / 1e12, "mfu": flops.mfu(work, sec), "launches": launches,
+    }
+    out["image"] = image
+    log("sd21 image: " + json.dumps(image))
+    log(f"sd21 image: {sec:.3f} s/image, {image['unet_tflop']:.3f} TFLOP of UNet work = {100 * image['mfu']:.3f}% "
+        f"of the bf16 peak, peak {image['peak_mem_gib']:.3f} GiB; launches {json.dumps(launches)} (sd15's main "
+        f"path: 332 / 72 / 180); n_evals {image['n_evals_total']}, refinements at step 0 "
+        f"{image['refine_iters_step0']}, recursions {image['recursions_0_14']} ({card})")
+    if img.shape != (1, 512, 512, 3) or not image["latents_finite"] or image["image_std"] <= 0:
+        raise SystemExit("sd21 image is malformed (shape, finiteness or constant image)")
+    for name, count in launches.items():
+        if count <= 0:
+            raise SystemExit(f"kernel {name} was not launched on the sd21 path")
+
+    # ---- (3) reproducibility: the 15-step image twice, bitwise (fault F3's guard)
+    twice = [workload.generate(pipe, workload.TIMED_SEED, steps=SD21_SHORT_STEPS) for _ in range(2)]
+    check_same(f"sd21 guided {SD21_SHORT_STEPS}-step image run twice (default algorithms)",
+               [torch.from_numpy(twice[1].latents), torch.from_numpy(twice[1].images_u8)],
+               [torch.from_numpy(twice[0].latents), torch.from_numpy(twice[0].images_u8)], results)
+
+    # ---- (4) parity traces
+    lat_file = os.path.join(SD21_OUT, "init_sd21.npy")
+    tr = {k: os.path.join(SD21_OUT, f"{k}.npz")
+          for k in ("bf16_cli", "bf16", "bf16_plain", "fp32_plain", "micro_cuda", "micro_cpu")}
+    trace_argv = ["trace", "--model", "sd21", "--sd_2_1", "--steps", str(SD21_TRACE_STEPS)]
+
+    def meta(key: str) -> dict:
+        return json.loads(str(np.load(tr[key])["meta"]))
+
+    def held_route(key: str, kernels: bool) -> None:
+        """The trace's own launch counts: every main-path kernel launched
+        (kernels), or none (the plain route)."""
+        n = {k: meta(key)["launches"][k] for k in MAIN_PATH_KERNELS}
+        if (min(n.values()) <= 0) if kernels else (max(n.values()) != 0):
+            raise SystemExit(f"the {key} trace launched {n}, not the {'kernels' if kernels else 'plain'} route")
+        log(f"  {key} trace: route {meta(key)['attention']}, launches {json.dumps(n)}")
+
+    # (a) bf16 through the kernels: the command line (its own bundle, the same
+    # weights) and the Python entry on this phase's pipeline, bitwise equal
+    if pt.main(trace_argv + ["--dtype", "bf16", "--save_latents", lat_file, "--out", tr["bf16_cli"]]) != 0:
+        raise SystemExit("parity_trace trace (sd21 bf16) failed")
+    pt.save(tr["bf16"], pt.trace(pipe, latents=np.load(lat_file), steps=SD21_TRACE_STEPS, sd_2_1=True, model="sd21"))
+    held_route("bf16_cli", True)
+    held_route("bf16", True)
+    rows_a: dict = {}
+    same = pt.compare(tr["bf16_cli"], tr["bf16"], rtol=0.0, atol=0.0, rows=rows_a)
+    results.setdefault("checks", []).append({"name": "sd21 bf16 trace twice at tolerance 0", "ok": same})
+    log(f"  sd21 bf16 trace ({SD21_TRACE_STEPS} steps) twice, compare at tolerance 0: {'ok' if same else 'FAIL'}")
+    if not same:
+        raise SystemExit("the sd21 bf16 trace does not repeat bitwise")
+    # (b) the full-width bf16 reading, a finding and not a gate: float32 on
+    # the plain route (the command line sets use_flash_attention=False: the
+    # kernels take bf16), and bf16 on the plain route (set here), so that
+    # the kernels' share of the bf16-vs-float32 distance shows apart from
+    # bf16 rounding in plain PyTorch
+    if pt.main(trace_argv + ["--dtype", "fp32", "--latents", lat_file, "--out", tr["fp32_plain"]]) != 0:
+        raise SystemExit("parity_trace trace (sd21 fp32) failed")
+    cfg = sd.unet.config
+    sd.unet.config = dataclasses.replace(cfg, use_flash_attention=False)
+    log("  sd21 bf16 trace on the plain route (use_flash_attention=False, set explicitly)")
+    pt.save(tr["bf16_plain"],
+            pt.trace(pipe, latents=np.load(lat_file), steps=SD21_TRACE_STEPS, sd_2_1=True, model="sd21"))
+    sd.unet.config = cfg
+    held_route("fp32_plain", False)
+    held_route("bf16_plain", False)
+    log("  sd21 bf16 against float32, readings and not gates (the float32 trace runs the plain route, "
+        "use_flash_attention=False, set explicitly):")
+    rows_b: dict = {}
+    for name, ref, got in (("bf16_kernels_vs_fp32_plain", "fp32_plain", "bf16"),
+                           ("bf16_plain_vs_fp32_plain", "fp32_plain", "bf16_plain"),
+                           ("bf16_kernels_vs_bf16_plain", "bf16_plain", "bf16")):
+        log(f"  sd21 {name}:")
+        rows_b[name] = {}
+        pt.compare(tr[ref], tr[got], rows=rows_b[name])
+    a = np.load(tr["bf16"])
+    for other in ("fp32_plain", "bf16_plain"):
+        b = np.load(tr[other])
+        for key in pt.COMPARE_KEYS + ("eval_mask",):
+            if key not in b or a[key].shape != b[key].shape or not np.isfinite(b[key].astype(np.float64)).all():
+                raise SystemExit(f"sd21 {other} trace: {key} missing, of another shape or not finite")
+    # (c) micro in float32, the card against the CPU, from one latent and one
+    # stream of re-noise draws; the threshold 0.0 is never met, so both take
+    # the same branches whatever their rounding (as the CPU parity tests do)
+    cpu = StableDiffusion.create("micro", torch.float32, device="cpu", seed=workload.WEIGHT_SEED)
+    gpu = StableDiffusion.create("micro", torch.float32, device="cuda", seed=workload.WEIGHT_SEED)
+    for c in ("unet", "text_encoder", "vae"):
+        getattr(gpu, c).load_state_dict(getattr(cpu, c).state_dict())
+    gpu.unet.config = dataclasses.replace(gpu.unet.config, use_flash_attention=False)
+    log("  micro fp32 trace on the card: the plain attention route (use_flash_attention=False, set explicitly)")
+    s_lat = cpu.config.latent_size
+    lat_micro = np.random.default_rng(MICRO_TRACE_SEED).standard_normal((1, s_lat, s_lat, 4)).astype(np.float32)
+    for key, bundle in (("micro_cuda", gpu), ("micro_cpu", cpu)):
+        noise = HostNoise(MICRO_TRACE_SEED, lat_micro.shape, bundle.device)
+        pt.save(tr[key], pt.trace(GuidedAttentionPipeline(bundle), latents=lat_micro, steps=MICRO_TRACE_STEPS,
+                                  thresholds="0:0.0", noise=noise, model="micro"))
+    held_route("micro_cuda", False)
+    rows_c: dict = {}
+    card_cpu = pt.compare(tr["micro_cpu"], tr["micro_cuda"], rows=rows_c)
+    results.setdefault("checks", []).append({"name": "micro fp32 trace, card against CPU", "ok": card_cpu})
+    log(f"  micro fp32 trace ({MICRO_TRACE_STEPS} steps), card against CPU at the default tolerance: "
+        f"{'ok' if card_cpu else 'FAIL'}")
+    if not card_cpu:
+        raise SystemExit("the micro trace on the card does not match the CPU trace")
+    out["traces"] = {"steps": SD21_TRACE_STEPS, "bf16_twice": rows_a, **rows_b,
+                     "micro_steps": MICRO_TRACE_STEPS, "micro_card_vs_cpu": rows_c}
+    del pipe, sd, img_out, twice, cpu, gpu
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"sd21 phase: {out['phase_s']:.1f} s ({card})")
+    results["sd21"] = out
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1308,7 +1560,7 @@ def main() -> int:
     torch.cuda.synchronize()
     results["create_s"] = time.perf_counter() - t0
     log(f"sd15 bf16 random init on the card: {results['create_s']:.1f} s")
-    eval_phase(sd, pipe, results)
+    results["eval_sd15"] = eval_phase(sd, pipe, results)
 
     t0 = time.perf_counter()
     workload.generate(pipe, workload.WARMUP_SEED)
@@ -1372,6 +1624,9 @@ def main() -> int:
     # ---- 10. serving
     serve_launches = serve_phase(pipe, results)
 
+    # ---- 11. SD2.1 at full width, and the parity traces
+    sd21_launches = sd21_phase(results)
+
     for row in kernels:
         row["launches"] = launches[row["name"]]
         if row["name"] in batch_launches:
@@ -1379,11 +1634,12 @@ def main() -> int:
             row["cli_launches"] = cli_launches[row["name"]]
             row["resumed_launches"] = resumed_launches[row["name"]]
             row["serve_launches"] = serve_launches[row["name"]]
+            row["sd21_launches"] = sd21_launches[row["name"]]
 
-    # ---- 11. the kernels line; exponentials are operations: the line names
+    # ---- 12. the kernels line; exponentials are operations: the line names
     # the two kinds of bound
     for row in kernels:
-        for r in (row, row.get("batch_shape") or {}):
+        for r in (row, row.get("batch_shape") or {}, row.get("sd21_shape") or {}):
             if r.get("bound_by") == "exp":
                 r["bound_by"], r["bound_by_unit"] = "operations", "exponentials"
     results["kernels"] = kernels

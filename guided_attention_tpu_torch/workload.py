@@ -9,6 +9,11 @@ The batch path is the same generation for several samples at once
 (``GuidedAttentionPipeline.generate_batch``): ``BATCH_SEEDS``, B = 4, two
 seeds under each of the two ``BATCH_PROMPTS``, which bind the same two
 groups to other boxes (the JAX package's ``scripts/perf_batch.py``).
+
+With ``create(model="sd21")`` the same generation runs on SD2.1-base;
+``generate`` and ``generate_batch`` then pass ``sd_2_1=True``, so that the
+guidance normalizes over the prompt's tokens up to its end-of-text token,
+as the CLI's ``--sd_2_1`` does (``sd_2_1`` follows the bundle's preset).
 """
 from __future__ import annotations
 
@@ -35,9 +40,14 @@ def create(device="cuda", model: str = "sd15", dtype: torch.dtype = torch.bfloat
     return GuidedAttentionPipeline(sd)
 
 
-def generate(pipe: GuidedAttentionPipeline, seed: int) -> PipelineOutput:
-    """One guided image of the main path."""
-    return pipe(meta_prompt=META_PROMPT, seed=seed, num_inference_steps=STEPS,
+def is_sd21(pipe: GuidedAttentionPipeline) -> bool:
+    """Whether the pipeline's bundle is the SD2.1 preset."""
+    return pipe.sd.config.name == "sd21"
+
+
+def generate(pipe: GuidedAttentionPipeline, seed: int, steps: int = STEPS) -> PipelineOutput:
+    """One guided image of the main path (``steps`` DDIM steps)."""
+    return pipe(meta_prompt=META_PROMPT, seed=seed, num_inference_steps=steps, sd_2_1=is_sd21(pipe),
                 decode=True, capture_diagnostics=False)
 
 
@@ -53,5 +63,6 @@ def generate_batch(pipe: GuidedAttentionPipeline, seeds: Sequence[int] = BATCH_S
     prompts ``batch_prompts`` unless ``meta_prompts`` names them; other
     keywords go to ``generate_batch``."""
     prompts = list(meta_prompts) if meta_prompts is not None else batch_prompts(len(seeds))
+    kwargs.setdefault("sd_2_1", is_sd21(pipe))
     return pipe.generate_batch(list(seeds), meta_prompts=prompts, num_inference_steps=steps,
                                decode=decode, capture_diagnostics=False, **kwargs)

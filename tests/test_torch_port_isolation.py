@@ -86,7 +86,7 @@ def test_port_package_has_every_counterpart_module():
         "guidance.losses", "guidance.custom", "ops.attention_variants", "runtime.flops",
         "runtime.timing", "perf_attn_kernel", "workload", "profile", "perf_batch",
         "runtime.artifacts", "runtime.native", "viewers.vis", "frontends.cli", "runtime.serialization",
-        "runtime.checkpoint", "models.io", "frontends.server", "frontends.gui", "perf_server",
+        "runtime.checkpoint", "models.io", "frontends.server", "frontends.gui", "perf_server", "parity_trace",
     ):
         assert want in names, want
     for src in ("flash_self_fwd.cu", "flash_self_bwd.cu", "cross_attention_map.cu", "flash_self_fwd_v1.cu",

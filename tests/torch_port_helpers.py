@@ -33,12 +33,12 @@ def _draw(rng, name: str, shape) -> np.ndarray:
     return rng.standard_normal(shape) / np.sqrt(shape[-1])  # embeddings
 
 
-def jax_param_shapes(model: str, dtype=jnp.float32, components=("unet", "text_encoder", "vae")) -> dict:
-    """The JAX package's parameter trees of a preset's ``components`` as
-    ``ShapeDtypeStruct`` leaves: the trees ``StableDiffusion.create`` inits,
-    traced by ``jax.eval_shape`` on abstract inputs (nothing is compiled or
-    allocated)."""
-    cfg = get_config(model, dtype)
+def jax_param_shapes(model: str, dtype=jnp.float32, components=("unet", "text_encoder", "vae"), cfg=None) -> dict:
+    """The JAX package's parameter trees of a preset's ``components`` (or of
+    the configuration ``cfg``) as ``ShapeDtypeStruct`` leaves: the trees
+    ``StableDiffusion.create`` inits, traced by ``jax.eval_shape`` on
+    abstract inputs (nothing is compiled or allocated)."""
+    cfg = cfg if cfg is not None else get_config(model, dtype)
     spec = jax.ShapeDtypeStruct
     key = spec((2,), jnp.uint32)
     s = cfg.latent_size
@@ -55,13 +55,15 @@ def jax_param_shapes(model: str, dtype=jnp.float32, components=("unet", "text_en
     return {c: inits[c]()["params"] for c in components}
 
 
-def jax_micro_bundle(seed: int = 0) -> StableDiffusion:
-    """The JAX package's micro StableDiffusion in float32, random weights."""
-    cfg = get_config("micro", jnp.float32)
+def jax_micro_bundle(seed: int = 0, cfg=None) -> StableDiffusion:
+    """The JAX package's micro StableDiffusion in float32 (or the
+    configuration ``cfg``, a variant of it), random weights; float32
+    parameters whatever ``cfg``'s compute dtype."""
+    cfg = cfg if cfg is not None else get_config("micro", jnp.float32)
     rng = np.random.default_rng(seed)
     params = jax.tree_util.tree_map_with_path(
         lambda path, leaf: jnp.asarray(_draw(rng, path[-1].key, leaf.shape), jnp.float32),
-        jax_param_shapes("micro"),
+        jax_param_shapes("micro", cfg=cfg),
     )
     return StableDiffusion(cfg, UNet2DCondition(cfg.unet), CLIPTextModel(cfg.clip), AutoencoderKL(cfg.vae),
                            load_tokenizer(None), params)

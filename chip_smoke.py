@@ -106,7 +106,23 @@ Phases:
      reading, not a gate); and micro in float32, 4 steps, on the card and on
      the CPU from one latent and one stream of re-noise draws, equal at the
      default tolerances;
- 12. a {"kernels": [...]} line, then the last line
+ 12. data parallelism, sd15 bf16 at full width: (a) one process,
+     ``generate_batch`` of two seeds at 15 steps with ``mesh=make_mesh()``
+     bitwise equal to it without a mesh; (b) one rank per card and at least
+     two (on a machine with one card, two ranks share it), one torchrun
+     launch (``python -m torch.distributed.run --standalone
+     --nproc_per_node N chip_smoke.py --data-parallel-rank DIR``, gloo):
+     ``frontends.cli.main --seeds 28 42 --batch_size N --mesh_shape
+     '{"data": N}'``, 50 steps, one sample per rank (the chunk padded with
+     seed 42 beyond two ranks): rank 0's tree must hold phase 8's
+     ``--batch_size 1`` files and its PNGs byte for byte, no other rank may
+     write a file; (c) then, in the same ranks, ``generate_batch`` of four
+     seeds under the two prompts at 15 steps: the whole batch on every
+     rank, bitwise equal, each rank's rows bitwise this process's
+     one-process batch of them, images on rank 0 only; each rank must
+     launch K1-K3 in (b) and in (c); readings: (b)'s seconds and s/image
+     beside phase 8's, the launch's wall time, each rank's launches;
+ 13. a {"kernels": [...]} line, then the last line
      {"ok": true, "device": {...}}.
 
 Any failed check or exception exits non-zero before the last line. Weights
@@ -1509,6 +1525,207 @@ def sd21_phase(results: dict) -> dict:
     return launches
 
 
+# the data-parallel phase (phase 12): one rank per card, and at least two
+# (on a machine with one card they share it), launched by torchrun, each
+# running this script's ``dp_rank``; their files go under build/ (listed in
+# .gitignore)
+DP_MIN_RANKS = 2
+DP_SHORT_STEPS = 15  # (a)'s and (c)'s runs
+DP_SEEDS = (40, 41, 42, 43)  # (c): four seeds under the two BATCH_PROMPTS in turn
+DP_OUT = os.path.join("build", "chip_smoke_dp")
+DP_TIMEOUT_S = 300
+
+
+def _same_outputs(got, want) -> bool:
+    """Latents, uint8 images and every StepDiag field bitwise equal."""
+    import numpy as np
+
+    from guided_attention_tpu_torch.pipeline import StepDiag
+
+    return all(
+        np.array_equal(g.latents, w.latents) and np.array_equal(g.images_u8, w.images_u8)
+        and all(np.array_equal(getattr(g.diagnostics, f.name), getattr(w.diagnostics, f.name))
+                for f in dataclasses.fields(StepDiag))
+        for g, w in zip(got, want))
+
+
+def dp_rank(out_dir: str) -> int:
+    """One rank of phase 12 (run by torchrun): after a 2-step warm-up image
+    (the process's first generation pays the CUDA libraries' start-up, which
+    phase 8 paid before its runs), ``frontends.cli.main`` with
+    ``--mesh_shape '{"data": N}'`` (seeds 28 and 42, 50 steps, its tree under
+    ``out_dir/rank<r>/tree``), then ``generate_batch`` of ``DP_SEEDS`` under
+    the two prompts over the same mesh; each with the launch counters zeroed
+    just before it. Writes ``out_dir/rank<r>.json`` (launches, seconds) and
+    ``.npz`` (the whole batch's outputs as this rank holds them)."""
+    import numpy as np
+    import torch
+
+    from guided_attention_tpu_torch import workload
+    from guided_attention_tpu_torch.frontends import cli
+    from guided_attention_tpu_torch.ops import build
+    from guided_attention_tpu_torch.ops.flash_attention import LAUNCHES, reset_launches
+    from guided_attention_tpu_torch.parallel import multihost
+    from guided_attention_tpu_torch.parallel.mesh import make_mesh
+    from guided_attention_tpu_torch.pipeline import StepDiag
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent runs
+    torch.backends.cudnn.allow_tf32 = False
+    build.load_library()
+    multihost.initialize()  # from torchrun's environment
+    pipe = workload.create(str(multihost.rank_device("cuda")))
+    workload.generate(pipe, workload.WARMUP_SEED, steps=BATCH_WARMUP_STEPS)
+    rank, ranks = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    out_dir = os.path.abspath(out_dir)
+    here = os.path.join(out_dir, f"rank{rank}")
+    os.makedirs(here)
+    os.chdir(here)  # the CLI's tree goes to ./tree: rank 1 must leave this directory empty
+    stats: dict = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    cli.main(["--meta_prompt", workload.META_PROMPT, "--seeds", *map(str, CLI_SEEDS), "--batch_size", str(ranks),
+              "--mesh_shape", json.dumps({"data": ranks}), "--output_path", "tree"], stats=stats)
+    cli_wall = time.perf_counter() - t0
+    cli_launches = {k: LAUNCHES[k] for k in MAIN_PATH_KERNELS}
+
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = workload.generate_batch(pipe, DP_SEEDS, steps=DP_SHORT_STEPS, mesh=make_mesh({"data": ranks}))
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    info = {"rank": rank, "device": str(pipe.sd.device), "cli_wall_s": cli_wall, "cli_stats": stats,
+            "cli_launches": cli_launches, "batch_s": batch_s,
+            "batch_launches": {k: LAUNCHES[k] for k in MAIN_PATH_KERNELS},
+            "images": [o.images_u8 is not None for o in outs]}
+    arrays = {"latents": np.stack([o.latents for o in outs])}
+    if all(info["images"]):
+        arrays["images_u8"] = np.stack([o.images_u8 for o in outs])
+    for f in dataclasses.fields(StepDiag):
+        arrays[f.name] = np.stack([getattr(o.diagnostics, f.name) for o in outs])
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+    log(f"rank {rank} on {info['device']}: CLI {cli_wall:.1f} s, launches {json.dumps(cli_launches)}; batch of "
+        f"{len(DP_SEEDS)} {batch_s:.1f} s, launches {json.dumps(info['batch_launches'])}")
+    multihost.barrier()
+    return 0
+
+
+def dp_phase(pipe, results: dict) -> dict:
+    """Phase 12: data parallelism. (a) one process, world size 1: a mesh of
+    one rank changes no bit; (b) and (c) one rank per card, at least two (on
+    one card, two ranks share it), in one torchrun launch (``dp_rank``): the
+    CLI's chunk of two seeds, padded to the ranks, one sample per rank; its
+    PNGs must be phase 8's ``--batch_size 1`` PNGs byte for byte and no
+    rank but 0 may write a file; the batch must be whole and equal on every
+    rank, each rank's rows equal to this process's one-process batch of
+    them, images on rank 0 only; each rank must launch K1-K3 in each.
+    Returns the ranks' launch counts."""
+    import shutil
+    import signal
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from guided_attention_tpu_torch import workload
+    from guided_attention_tpu_torch.parallel.mesh import make_mesh
+    from guided_attention_tpu_torch.pipeline import StepDiag
+
+    card = results["card"]
+    n_ranks = max(DP_MIN_RANKS, torch.cuda.device_count())
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) world size 1
+    seeds, prompts = list(CLI_SEEDS), [workload.META_PROMPT] * len(CLI_SEEDS)
+    want = workload.generate_batch(pipe, seeds, prompts, steps=DP_SHORT_STEPS)
+    got = workload.generate_batch(pipe, seeds, prompts, steps=DP_SHORT_STEPS, mesh=make_mesh())
+    out["one_process_bitwise"] = _same_outputs(got, want)
+    log(f"  (a) one process: generate_batch(mesh=make_mesh()) against no mesh, {len(seeds)} seeds, "
+        f"{DP_SHORT_STEPS} steps: {'bitwise' if out['one_process_bitwise'] else 'DIFFERENT'}")
+    if not out["one_process_bitwise"]:
+        raise SystemExit("phase 12 (a): a mesh of one process changed the batch")
+
+    # (b) and (c): one torchrun launch
+    shutil.rmtree(DP_OUT, ignore_errors=True)
+    os.makedirs(DP_OUT)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(n_ranks),
+           os.path.abspath(__file__), "--data-parallel-rank", DP_OUT]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, start_new_session=True)
+    try:
+        rc = proc.wait(timeout=DP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        raise SystemExit(f"phase 12: the ranks did not finish within {DP_TIMEOUT_S} s")
+    launch_wall = time.perf_counter() - t0
+    if rc != 0:
+        raise SystemExit(f"phase 12: torchrun exited with {rc}")
+    ranks = []
+    for r in range(n_ranks):
+        with open(os.path.join(DP_OUT, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for info in ranks:
+        for kind in ("cli_launches", "batch_launches"):
+            if min(info[kind].values()) <= 0:
+                raise SystemExit(f"phase 12: rank {info['rank']} launched no {info[kind]} ({kind})")
+
+    # (b) the CLI's tree: rank 0's is phase 8's batch-size-1 tree, PNG for PNG
+    tree, single = os.path.join(DP_OUT, "rank0", "tree"), os.path.join(CLI_OUT, "batch_size_1")
+    files = {root: sorted(os.path.relpath(os.path.join(d, f), root) for d, _, fs in os.walk(root) for f in fs)
+             for root in (tree, single)}
+    pngs = [f for f in files[single] if f.endswith(".png")]
+    same = [f for f in pngs if Path(tree, f).read_bytes() == Path(single, f).read_bytes()]
+    others = [f for r in range(1, n_ranks) for f in os.listdir(os.path.join(DP_OUT, f"rank{r}"))]
+    gen = max(info["cli_stats"]["generate_s"] for info in ranks)
+    phase8 = results["cli"]["batch_size 1"]
+    out["cli"] = {"files": len(files[tree]), "pngs": len(pngs), "pngs_equal": len(same),
+                  "same_file_set": files[tree] == files[single], "other_ranks_files": others,
+                  "wall_s": max(info["cli_wall_s"] for info in ranks), "generate_s": gen,
+                  "s_per_image": gen / len(CLI_SEEDS), "phase8_batch_size_1_s_per_image": phase8["s_per_image"],
+                  "launch_wall_s": launch_wall}
+    log(f"  (b) {n_ranks} ranks on {torch.cuda.device_count()} card(s), CLI --mesh_shape {{\"data\": {n_ranks}}}, "
+        f"seeds {list(CLI_SEEDS)}, {workload.STEPS} steps: {len(same)}/{len(pngs)} PNGs byte for byte phase 8's "
+        f"--batch_size 1, same files {out['cli']['same_file_set']}, ranks 1-{n_ranks - 1} wrote {others}; "
+        f"wall {out['cli']['wall_s']:.3f} s, "
+        f"{out['cli']['s_per_image']:.3f} s/image generating (phase 8 --batch_size 1: {phase8['s_per_image']:.3f}); "
+        f"torchrun launch {launch_wall:.1f} s ({card})")
+    if not pngs or len(same) != len(pngs) or not out["cli"]["same_file_set"] or others:
+        raise SystemExit("phase 12 (b): the data-parallel CLI's tree is not phase 8's, or another rank wrote files")
+
+    # (c) the Python batch: whole and equal on both ranks, each rank's rows
+    # this process's one-process batch of them
+    got = [dict(np.load(os.path.join(DP_OUT, f"rank{r}.npz"))) for r in range(n_ranks)]
+    names = ["latents"] + [f.name for f in dataclasses.fields(StepDiag)]
+    equal_ranks = all(np.array_equal(got[0][n], g[n]) for g in got[1:] for n in names)
+    per = len(DP_SEEDS) // n_ranks
+    prompts = workload.batch_prompts(len(DP_SEEDS))
+    rows_equal = []
+    for r in range(n_ranks):
+        rows = slice(r * per, (r + 1) * per)
+        ref = workload.generate_batch(pipe, DP_SEEDS[rows], prompts[rows], steps=DP_SHORT_STEPS)
+        rows_equal.append(all(np.array_equal(got[0][n][rows], np.stack([getattr(o.diagnostics, n) for o in ref]))
+                              for n in names[1:])
+                          and np.array_equal(got[0]["latents"][rows], np.stack([o.latents for o in ref]))
+                          and np.array_equal(got[0]["images_u8"][rows], np.stack([o.images_u8 for o in ref])))
+    images = [info["images"] for info in ranks]
+    out["ranks_on_cards"] = [n_ranks, torch.cuda.device_count()]
+    out["batch"] = {"seeds": list(DP_SEEDS), "steps": DP_SHORT_STEPS, "whole_equal_on_ranks": equal_ranks,
+                    "rows_equal_one_process": rows_equal, "images": images,
+                    "s": [info["batch_s"] for info in ranks]}
+    log(f"  (c) {n_ranks} ranks, generate_batch of {len(DP_SEEDS)} seeds under two prompts, {DP_SHORT_STEPS} steps: "
+        f"whole batch equal on every rank {equal_ranks}, rows equal to this process's batch of them {rows_equal}, "
+        f"images on ranks {[all(i) for i in images]}; {json.dumps(out['batch']['s'])} s ({card})")
+    if not equal_ranks or not all(rows_equal) or images != [[r == 0] * len(DP_SEEDS) for r in range(n_ranks)]:
+        raise SystemExit("phase 12 (c): the data-parallel batch is not whole, not equal, or has images off rank 0")
+    out["ranks"] = ranks
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"data-parallel phase: {out['phase_s']:.1f} s ({card})")
+    results["data_parallel"] = out
+    return {k: [[info["cli_launches"][k], info["batch_launches"][k]] for info in ranks] for k in MAIN_PATH_KERNELS}
+
+
 def main() -> int:
     import torch
 
@@ -1627,6 +1844,9 @@ def main() -> int:
     # ---- 11. SD2.1 at full width, and the parity traces
     sd21_launches = sd21_phase(results)
 
+    # ---- 12. data parallelism: one process, then two ranks on the card
+    dp_launches = dp_phase(pipe, results)
+
     for row in kernels:
         row["launches"] = launches[row["name"]]
         if row["name"] in batch_launches:
@@ -1635,8 +1855,10 @@ def main() -> int:
             row["resumed_launches"] = resumed_launches[row["name"]]
             row["serve_launches"] = serve_launches[row["name"]]
             row["sd21_launches"] = sd21_launches[row["name"]]
+            # per rank: [CLI run, Python batch]
+            row["data_parallel_launches"] = dp_launches[row["name"]]
 
-    # ---- 12. the kernels line; exponentials are operations: the line names
+    # ---- 13. the kernels line; exponentials are operations: the line names
     # the two kinds of bound
     for row in kernels:
         for r in (row, row.get("batch_shape") or {}, row.get("sd21_shape") or {}):
@@ -1656,4 +1878,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--data-parallel-rank"]:
+        sys.exit(dp_rank(sys.argv[2]))
     sys.exit(main())

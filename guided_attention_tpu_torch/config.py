@@ -129,7 +129,7 @@ class RunConfig:
     skip_inert_guidance_passes: bool = True
     # Number of seeds to generate per device batch
     batch_size: int = 1
-    # Mesh shape, e.g. {"data": 4} (not in the port yet)
+    # Mesh shape over the processes, e.g. {"data": 4} (parallel/mesh.py)
     mesh_shape: Optional[Dict[str, int]] = None
     # dtype for compute: "bfloat16" or "float32"
     dtype: str = "bfloat16"
@@ -139,12 +139,12 @@ class RunConfig:
     hyperparam_iterations: Optional[List[Dict[str, Any]]] = None
     # Write a torch.profiler Chrome trace of the run to this directory
     profile_dir: Optional[str] = None
-    # Checkpoint generation state every N denoising steps; 0 == off (not in
-    # the port yet)
+    # Checkpoint generation state every N denoising steps; 0 == off
     checkpoint_every: int = 0
     # Where generation state files live; default <output_path>/state
     state_dir: Optional[str] = None
-    # Multi-process launch (not in the port yet)
+    # Multi-process launch, one GPU per process (parallel/multihost.py);
+    # absent values come from torchrun's environment
     coordinator_address: Optional[str] = None
     num_processes: Optional[int] = None
     process_id: Optional[int] = None

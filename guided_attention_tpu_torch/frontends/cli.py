@@ -1,4 +1,4 @@
-"""CLI entry and orchestration (the reference's run.py, on one GPU).
+"""CLI entry and orchestration (the reference's run.py).
 
 Every RunConfig field is a --flag (the reference uses pyrallis,
 run.py:235-236; here a dataclass-driven argparse, as in the JAX package's
@@ -19,8 +19,16 @@ Usage:
 ``--interactive true`` serves the web UI instead (``frontends/gui.py``,
 http://127.0.0.1:5000), through the serving engine.
 
-Not in the port yet, and refused with NotImplementedError: --mesh_shape and
---num_processes > 1 (several GPUs, ROADMAP.md Queue 1 item 5).
+Several GPUs, one process each (``parallel/``): launch N processes with
+torchrun, ``python -m torch.distributed.run --standalone --nproc_per_node N
+-m guided_attention_tpu_torch.frontends.cli --batch_size N ...``, or start
+each with ``--num_processes N --process_id I --coordinator_address
+host:port``. The batch path then splits each chunk over the mesh's data axis
+(``--mesh_shape '{"data": N}'``, the default over N processes), padded up
+to it by repeating the chunk's last sample (the padded outputs are
+dropped), and only rank 0 writes the artifact tree. Refused with
+NotImplementedError: the mesh's tensor axis, and ``--interactive`` over
+several processes (the server's mesh; ROADMAP.md Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -33,6 +41,8 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 from guided_attention_tpu_torch.config import HyperParams, RunConfig, get_hyperparam_states
+from guided_attention_tpu_torch.parallel import multihost
+from guided_attention_tpu_torch.parallel.mesh import make_mesh
 from guided_attention_tpu_torch.runtime.artifacts import annotate_image, image_grid, write_run_artifacts
 from guided_attention_tpu_torch.runtime.native import AsyncArtifactWriter, write_png
 
@@ -82,13 +92,10 @@ def parse_args(argv: Optional[List[str]] = None) -> RunConfig:
 
 def check_supported(config: RunConfig) -> None:
     """Refuse the options the port does not run yet, naming their ROADMAP item."""
-    refused = [
-        (config.mesh_shape, "--mesh_shape (data and tensor parallelism over several GPUs)", 5),
-        ((config.num_processes or 1) > 1, "--num_processes > 1 (several processes and GPUs)", 5),
-    ]
-    for on, what, item in refused:
-        if on:
-            raise NotImplementedError(f"{what} is not in the PyTorch port yet: ROADMAP.md Queue 1 item {item}")
+    if (config.mesh_shape or {}).get("tensor", 1) > 1:
+        raise NotImplementedError(
+            "--mesh_shape with a tensor axis (Megatron-style UNet projections over several GPUs) is not in the "
+            "PyTorch port yet: ROADMAP.md Queue 1 item 7")
 
 
 def setup(config: RunConfig):
@@ -126,7 +133,8 @@ def execute(config: RunConfig, pipe, hyperparam_iterations: Optional[List[Dict[s
     seeds); ``stats``, when given, receives the images made and the
     seconds spent generating and writing artifacts."""
     check_supported(config)
-    config.ensure_output_dir()
+    if multihost.is_primary():  # artifacts are rank 0's job
+        config.ensure_output_dir()
     if hyperparam_iterations is None:
         hyperparam_iterations = config.hyperparam_iterations
     # Precedence (reference run.py:75-79, shared_state.py:21): the sweep base
@@ -173,21 +181,29 @@ def execute(config: RunConfig, pipe, hyperparam_iterations: Optional[List[Dict[s
         if step:
             print(f"  resumed from step {step}")
 
+    # several processes (or an explicit mesh): every chunk is split over the
+    # data axis, padded up to it by repeating its last sample
+    mesh = make_mesh(config.mesh_shape) if config.mesh_shape or multihost.process_count() > 1 else None
+    data = mesh.shape.get("data", 1) if mesh is not None else 1
+
     t0 = time.perf_counter()
     work = []  # (seed, hp, meta_prompt, PipelineOutput)
-    if config.batch_size > 1:
+    if config.batch_size > 1 or mesh is not None:
         # one multi-prompt batch per chunk when its prompts differ
         for hp, chunk in plan_batch_chunks(config, states):
-            seeds = [s for _, s in chunk]
-            prompts = [mp for mp, _ in chunk]
+            padded = chunk + [chunk[-1]] * (-len(chunk) % data)
+            seeds = [s for _, s in padded]
+            prompts = [mp for mp, _ in padded]
             print(f"Seeds (batch): {seeds}")
             prompt_kw = dict(meta_prompt=prompts[0]) if len(set(prompts)) == 1 else dict(meta_prompts=prompts)
             if resumable:
                 # each chunk persists its whole batch every N steps
-                outs = pipe.generate_batch_resumable(seeds, **resume_kw, **prompt_kw, **run_kwargs(hp))
+                outs = pipe.generate_batch_resumable(seeds, mesh=mesh, **resume_kw, **prompt_kw, **run_kwargs(hp))
                 report_resume(outs[0].resumed_from_step)
             else:
-                outs = pipe.dispatch_batch(seeds, **prompt_kw, trim_heavy_diags=trim, **run_kwargs(hp)).result()
+                outs = pipe.dispatch_batch(seeds, mesh=mesh, **prompt_kw, trim_heavy_diags=trim,
+                                           **run_kwargs(hp)).result()
+            # zipped with the unpadded chunk: the padded outputs are dropped
             work.extend((s, hp, mp, o) for (mp, s), o in zip(chunk, outs))
     else:
         for seed in config.seeds:
@@ -205,6 +221,10 @@ def execute(config: RunConfig, pipe, hyperparam_iterations: Optional[List[Dict[s
                     work.append((seed, hp, meta_prompt, out))
     t1 = time.perf_counter()
     if not work:  # empty --seeds: nothing generated, nothing to grid
+        return None
+    if not multihost.is_primary():
+        if stats is not None:
+            stats.update(images=len(work), generate_s=t1 - t0, artifacts_s=0.0)
         return None
 
     images, image_path = [], None
@@ -242,11 +262,17 @@ def execute(config: RunConfig, pipe, hyperparam_iterations: Optional[List[Dict[s
 
 
 def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = None):
-    """Parse ``argv`` (default: the command line), build the pipeline and
+    """Parse ``argv`` (default: the command line), join the process group
+    of a multi-process launch, build the pipeline on this rank's device and
     run the sweep, or serve the web UI with ``--interactive``; ``stats``
     goes to ``execute``."""
     config = parse_args(argv)
     check_supported(config)
+    multihost.initialize(config.coordinator_address, config.num_processes, config.process_id)
+    if config.interactive and multihost.process_count() > 1:
+        raise NotImplementedError("--interactive over several processes (the server's mesh) is not in the PyTorch "
+                                  "port yet: ROADMAP.md Queue 1 item 7")
+    config.device = str(multihost.rank_device(config.device))
     pipe = setup(config)
     if config.interactive:
         from guided_attention_tpu_torch.frontends.gui import run_server
@@ -260,10 +286,11 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = N
             activities.append(ProfilerActivity.CUDA)
         with profile(activities=activities) as prof:
             execute(config, pipe, stats=stats)
-        out_dir = Path(config.profile_dir)
-        out_dir.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(out_dir / "trace.json"))
-        print(f"profiler trace written to {out_dir / 'trace.json'}")
+        if multihost.is_primary():
+            out_dir = Path(config.profile_dir)
+            out_dir.mkdir(parents=True, exist_ok=True)
+            prof.export_chrome_trace(str(out_dir / "trace.json"))
+            print(f"profiler trace written to {out_dir / 'trace.json'}")
     else:
         execute(config, pipe, stats=stats)
 

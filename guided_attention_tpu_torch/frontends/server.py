@@ -38,8 +38,9 @@ guidance eval), and the card trails the host by little. So:
   and the card's name (:569 reads ``jax.devices()``); the x0-decode
   compile guard (:534-550) has no counterpart, since nothing compiles per
   shape.
-- One GPU: ``mesh=`` and ``--mesh_shape`` raise NotImplementedError
-  (ROADMAP.md Queue 1 item 5).
+- One GPU: ``mesh=`` and ``--mesh_shape`` raise NotImplementedError. Over
+  several processes rank 0 would serve and every other rank follow each
+  batch in lockstep (ROADMAP.md Queue 1 item 7).
 
 HTTP protocol (stdlib ThreadingHTTPServer; handler threads block on their
 ticket, the batcher thread runs every batch):
@@ -192,8 +193,8 @@ class BatchingEngine:
             raise ValueError(f"invalid batch buckets: {buckets}")
         if mesh is not None:
             raise NotImplementedError(
-                "mesh= (data and tensor parallelism over several GPUs) is not in the PyTorch port yet: "
-                "ROADMAP.md Queue 1 item 5")
+                "mesh= (a server whose batches follow other ranks in lockstep) is not in the PyTorch port yet: "
+                "ROADMAP.md Queue 1 item 7")
         self.max_batch = self.buckets[-1]
         self.max_queue = int(max_queue)
 
@@ -563,8 +564,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = p.parse_args(argv)
     if args.mesh_shape:
         raise NotImplementedError(
-            "--mesh_shape (data and tensor parallelism over several GPUs) is not in the PyTorch port yet: "
-            "ROADMAP.md Queue 1 item 5")
+            "--mesh_shape (a server whose batches follow other ranks in lockstep) is not in the PyTorch port yet: "
+            "ROADMAP.md Queue 1 item 7")
 
     import torch
 

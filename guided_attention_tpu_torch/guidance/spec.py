@@ -255,7 +255,8 @@ def stack_specs(specs: Sequence[GuidanceSpec]) -> GuidanceSpec:
     return dataclasses.replace(s0, pww_masks=pww, **stacked)
 
 
-def spec_row(spec: GuidanceSpec, b: int) -> GuidanceSpec:
-    """Sample ``b`` of a stacked spec (views of its tensors)."""
+def spec_row(spec: GuidanceSpec, b) -> GuidanceSpec:
+    """Sample ``b`` of a stacked spec, or its rows ``b`` for a slice (views
+    of its tensors)."""
     rows = {name: getattr(spec, name)[b] for name in _SPEC_TENSORS}
     return dataclasses.replace(spec, pww_masks={res: m[b] for res, m in spec.pww_masks.items()}, **rows)

@@ -1,10 +1,13 @@
 """GuidedAttentionPipeline: the user-facing pipeline object.
 
-Counterpart of the JAX package's ``runner.py`` on one GPU: ``dispatch``
-(one image) and ``dispatch_batch`` / ``generate_batch`` (one image per seed,
-one prompt for all or one per seed), with the same keyword surface and
-validation, a prepare cache keyed by every option, decode to uint8 on the
-device, and ``PipelineOutput``.
+Counterpart of the JAX package's ``runner.py``: ``dispatch`` (one image)
+and ``dispatch_batch`` / ``generate_batch`` (one image per seed, one prompt
+for all or one per seed), with the same keyword surface and validation, a
+prepare cache keyed by every option, decode to uint8 on the device, and
+``PipelineOutput``. The batch entries take a ``mesh``
+(``parallel.make_mesh``): with several processes, one GPU each, every rank
+runs its rows of the batch and holds the whole batch's latents and
+diagnostics afterwards, and the primary the images (``parallel/batch.py``).
 
 Seed semantics: a sample's initial latents and every re-noise / eta draw
 come, in loop order, from one ``torch.Generator`` on the model's device
@@ -34,11 +37,12 @@ from guided_attention_tpu_torch.config import HyperParams, RunConfig
 from guided_attention_tpu_torch.guidance.custom import CustomLossRegistry, default_registry
 from guided_attention_tpu_torch.guidance.spec import GuidanceSpec, build_guidance_spec, stack_specs
 from guided_attention_tpu_torch.models.bundle import StableDiffusion
+from guided_attention_tpu_torch.parallel import batch as pbatch
+from guided_attention_tpu_torch.parallel.multihost import barrier
 from guided_attention_tpu_torch.pipeline import (
     GenStatics,
     NoiseSource,
     StepDiag,
-    generate_batch,
     guidance_gates,
     make_step_arrays,
 )
@@ -142,8 +146,9 @@ class PipelineOutput:
 
 @dataclasses.dataclass
 class PendingBatch:
-    """A batch generation whose results still lie on the device;
-    ``result()`` copies them to the host once and splits them per sample."""
+    """A batch generation whose results still lie on the device (on the
+    host already when gathered over a mesh); ``result()`` copies them to the
+    host once and splits them per sample."""
 
     _img_u8: Optional[torch.Tensor]  # [B, H, W, 3] uint8
     _latents: torch.Tensor  # [B, h, w, C]
@@ -466,24 +471,28 @@ class GuidedAttentionPipeline:
         return gens, lat0.to(self.sd.config.unet.dtype)
 
     def _dispatch(self, opts: PrepareOptions, seeds, meta_prompts, latents, noise, decode: bool,
-                  trim: bool = False) -> PendingBatch:
+                  trim: bool = False, mesh=None) -> PendingBatch:
         per_out, hp, spec, statics, sched, arrays, emb = self._prepare_batch(opts, seeds, meta_prompts)
         dev = self.sd.device
         B = len(seeds)
         shape = self._latent_shape()
-        gens, lat0 = self._seeded(seeds)
+        shard = pbatch.Shard(mesh, B)
+        gens, lat0 = self._seeded(seeds[shard.rows])
         if latents is not None:
             lat0 = torch.as_tensor(np.asarray(latents) if not torch.is_tensor(latents) else latents, device=dev).clone()
             if tuple(lat0.shape) != (B,) + shape[1:]:
                 raise ValueError(f"latents must be {(B,) + shape[1:]}, got {tuple(lat0.shape)}")
+            lat0 = shard.take(lat0)
         if noise is None:
             noise = [GeneratorNoise(g, shape, dev) for g in gens]
         elif len(noise) != B:
             raise ValueError(f"noise has {len(noise)} sources for {B} seeds")
+        else:
+            noise = shard.take(noise)
         keep = _trim_plan(statics, hp) if trim else None
         on_device = functools.partial(_apply_trim, keep=keep) if trim else None
-        final, diags = generate_batch(self.sd, statics, hp, emb, lat0, spec, sched, arrays, noise, on_device=on_device)
-        img_u8 = self.sd.decode_latents_u8(final) if decode else None
+        final, diags, img_u8 = pbatch.generate_batch(shard, self.sd, statics, hp, emb, lat0, spec, sched, arrays,
+                                                     noise, on_device=on_device, decode=decode)
         return PendingBatch(img_u8, final, diags, per_out, list(seeds), keep, statics.num_steps)
 
     def dispatch_batch(
@@ -520,6 +529,7 @@ class GuidedAttentionPipeline:
         remat_guidance_eval: bool = False,
         noise: Optional[Sequence[NoiseSource]] = None,
         trim_heavy_diags: bool = False,
+        mesh=None,
     ) -> PendingBatch:
         """Run one generation per seed as one batch on the device; the
         results stay there until ``.result()``, which returns one
@@ -537,11 +547,19 @@ class GuidedAttentionPipeline:
 
         ``latents`` ([B, h, w, C]) and ``noise`` (one ``NoiseSource`` per
         seed) replace the seeded draws; ``trim_heavy_diags`` is
-        ``dispatch``'s. The JAX package's ``mesh`` (data and tensor
-        parallelism over devices) has no counterpart here yet: one GPU runs
-        the batch."""
+        ``dispatch``'s.
+
+        ``mesh`` (``parallel.make_mesh``) splits the batch over the data
+        axis of the process group, one GPU per process; every process makes
+        this same call. Each runs its rows (B must divide evenly) and
+        decodes them, and the call returns once every rank holds the whole
+        batch's latents and diagnostics (gathered over gloo) and the
+        primary its images; ``images`` is None on the other ranks. Sample b
+        is bit for bit the one-process batch of its rank's rows. With one
+        process, ``mesh`` changes nothing. The mesh's ``tensor`` axis is
+        not in the port (``make_mesh`` refuses it)."""
         opts = PrepareOptions.from_locals(locals())
-        return self._dispatch(opts, list(seeds), meta_prompts, latents, noise, decode, trim_heavy_diags)
+        return self._dispatch(opts, list(seeds), meta_prompts, latents, noise, decode, trim_heavy_diags, mesh)
 
     def generate_batch(self, seeds: Sequence[int], **kwargs) -> List[PipelineOutput]:
         """``dispatch_batch(seeds, ...).result()`` (same keyword surface)."""
@@ -556,38 +574,44 @@ class GuidedAttentionPipeline:
 
     def _resumable(self, opts: PrepareOptions, seeds: Sequence[int], meta_prompts, identity: str,
                    checkpoint_every: int, state_dir: str, resume: bool, decode: bool, keep_state: bool,
-                   on_segment) -> List[PipelineOutput]:
+                   on_segment, mesh=None) -> List[PipelineOutput]:
         """The loop of both resumable entries: restore the newest state of
         ``identity`` (step reached, latents, diagnostics, generator states),
         run the remaining steps in segments of the ``checkpoint_every`` grid
-        and persist each one."""
+        and persist each one. Over a ``mesh`` each rank runs its rows, and
+        after each segment every rank writes the identical whole-batch
+        state (per-process temporary files, then an atomic rename)."""
         from guided_attention_tpu_torch.runtime import checkpoint as ckpt
 
         per_out, hp, spec, statics, sched, arrays, emb = self._prepare_batch(opts, seeds, meta_prompts)
         dev, shape, S = self.sd.device, self._latent_shape(), statics.num_steps
+        shard = pbatch.Shard(mesh, len(seeds))
         st = ckpt.latest_state(state_dir, identity) if resume else None
         # a state without one generator state per sample cannot resume
         if st is not None and st[3] is not None and len(st[3]) == len(seeds):
             start, lat, diags, states = st
-            latents = torch.as_tensor(lat).to(dev)
-            gens = [torch.Generator(device=dev) for _ in seeds]
-            for g, state in zip(gens, states):
-                g.set_state(torch.from_numpy(np.array(state, np.uint8)))
+            latents = shard.take(torch.as_tensor(lat)).to(dev)
+            gens = []
+            for state in shard.take(states):
+                gens.append(torch.Generator(device=dev))
+                gens[-1].set_state(torch.from_numpy(np.array(state, np.uint8)))
         else:
             start, diags = 0, None
-            gens, latents = self._seeded(seeds)
+            gens, latents = self._seeded(seeds[shard.rows])
         for a, b in ckpt.segment_bounds(start, S, checkpoint_every) if start < S else ():
             noise = [GeneratorNoise(g, shape, dev) for g in gens]
-            latents, seg = generate_batch(self.sd, statics, hp, emb, latents, spec, sched, arrays, noise,
-                                          start=a, stop=b)
-            ckpt.save_state(state_dir, identity, b, latents, seg, seg_start=a,
-                            generators=[g.get_state() for g in gens])
+            whole, seg, _ = pbatch.generate_batch(shard, self.sd, statics, hp, emb, latents, spec, sched, arrays,
+                                                  noise, start=a, stop=b)
+            states = shard.gather(torch.stack([g.get_state() for g in gens]))
+            ckpt.save_state(state_dir, identity, b, whole, seg, seg_start=a, generators=list(states))
+            latents = shard.take(whole).to(dev)
             diags = seg if diags is None else ckpt.concat_diags([diags, seg])
             if on_segment is not None:
                 on_segment(b, S)
-        img_u8 = self.sd.decode_latents_u8(latents) if decode else None
-        outs = PendingBatch(img_u8, latents, diags, per_out, list(seeds)).result()
+        img_u8 = shard.gather_images(self.sd.decode_latents_u8(latents)) if decode else None
+        outs = PendingBatch(img_u8, shard.gather(latents), diags, per_out, list(seeds)).result()
         if not keep_state:
+            barrier()  # no rank is still writing this run's state
             ckpt.clear_state(state_dir, identity)
         for o in outs:
             o.resumed_from_step = start
@@ -637,20 +661,18 @@ class GuidedAttentionPipeline:
         ``generate_resumable``: the whole batch runs in segments and
         persists its latents, diagnostics and every sample's generator
         state after each. ``meta_prompts`` gives one prompt per seed,
-        ``meta_prompt=`` (a keyword of ``PrepareOptions``) one for all. The
-        JAX package's ``mesh`` (several devices) is not in the port yet."""
+        ``meta_prompt=`` (a keyword of ``PrepareOptions``) one for all.
+        ``mesh`` is ``dispatch_batch``'s: every rank persists the whole
+        batch's state, every sample's generator state included, and on
+        resume takes back its rows' latents and generator states."""
         from guided_attention_tpu_torch.runtime import checkpoint as ckpt
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (data and tensor parallelism over several GPUs) is not in the PyTorch port yet: "
-                "ROADMAP.md Queue 1 item 5")
         opts = PrepareOptions(**kwargs)
         identity = ckpt.run_identity(
             repr(opts), f"seeds={[_mask_seed(s) for s in seeds]}",
             f"prompts={None if meta_prompts is None else list(meta_prompts)}", *self._identity_parts())
         return self._resumable(opts, list(seeds), meta_prompts, identity, checkpoint_every, state_dir, resume,
-                               decode, keep_state, on_segment)
+                               decode, keep_state, on_segment, mesh)
 
 
 def pipeline_from_config(config: RunConfig, registry: Optional[CustomLossRegistry] = None) -> GuidedAttentionPipeline:

@@ -13,7 +13,8 @@ determinism repair, on the CPU.
   relative paths, run logs and decoded pixels (no JAX program is built:
   JAX's execute drives a stand-in pipeline that returns the port's
   outputs and decodes with the port's VAE).
-* Every option the port does not run yet raises NotImplementedError, and
+* Every option the port does not run yet (the mesh's tensor axis) raises
+  NotImplementedError, and
   ``--interactive`` hands over to the web UI (``gui.run_server``).
 * The smoothing's reflect padding, rebuilt from slices (the CUDA backward of
   ``F.pad(mode="reflect")`` accumulates with atomics), equals ``F.pad``'s
@@ -241,13 +242,13 @@ def test_profile_dir_writes_a_chrome_trace(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh_shape", '{"data": 2}'],
-    ["--num_processes", "2"],
-    ["--checkpoint_every", "5", "--mesh_shape", '{"data": 2}'],  # resumable runs are in; over several GPUs not
+    ["--mesh_shape", '{"data": 1, "tensor": 2}'],
+    ["--mesh_shape", '{"tensor": 2}', "--num_processes", "2"],  # refused before the process group starts
+    ["--checkpoint_every", "5", "--mesh_shape", '{"tensor": 2}'],  # resumable runs are in; the tensor axis not
 ])
 def test_unsupported_options_raise(flag, tmp_path):
     argv = ["--meta_prompt", META, "--model", "micro", "--device", "cpu", "--output_path", str(tmp_path)] + flag
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item \d"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 7"):
         tcli.main(argv)
     with pytest.raises(NotImplementedError):
         tcli.execute(tcli.parse_args(argv), pipe=None)

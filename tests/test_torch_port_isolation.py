@@ -38,13 +38,13 @@ def _port_sources():
 
 def test_port_imports_with_jax_blocked():
     """Every module of the port imports with jax/flax, msgpack and ml_dtypes
-    (and PIL, matplotlib and cv2, which only options import, inside their
-    calls) made unimportable,
+    (and PIL, matplotlib, cv2 and sklearn, which only options and the
+    viewers import, inside their calls) made unimportable,
     no module of the JAX package gets loaded along the way, and the native
     artifact writer loaded is the port's own."""
     code = (
         "import sys, pkgutil, importlib, tempfile, os\n"
-        "for name in ('jax', 'flax', 'msgpack', 'ml_dtypes', 'PIL', 'matplotlib', 'cv2'):\n"
+        "for name in ('jax', 'flax', 'msgpack', 'ml_dtypes', 'PIL', 'matplotlib', 'cv2', 'sklearn'):\n"
         "    sys.modules[name] = None\n"
         "import guided_attention_tpu_torch as p, chip_smoke\n"
         "for m in pkgutil.walk_packages(p.__path__, 'guided_attention_tpu_torch.'):\n"
@@ -87,6 +87,8 @@ def test_port_package_has_every_counterpart_module():
         "runtime.timing", "perf_attn_kernel", "workload", "profile", "perf_batch",
         "runtime.artifacts", "runtime.native", "viewers.vis", "frontends.cli", "runtime.serialization",
         "runtime.checkpoint", "models.io", "frontends.server", "frontends.gui", "perf_server", "parity_trace",
+        "parallel.batch", "parallel.mesh", "parallel.multihost", "viewers.batch_map_view",
+        "viewers.self_attn_clusters",
     ):
         assert want in names, want
     for src in ("flash_self_fwd.cu", "flash_self_bwd.cu", "cross_attention_map.cu", "flash_self_fwd_v1.cu",

@@ -26,6 +26,7 @@ from guided_attention_tpu.runtime import checkpoint as jckpt
 from guided_attention_tpu_torch.config import HyperParams
 from guided_attention_tpu_torch.frontends import cli as tcli
 from guided_attention_tpu_torch.models.bundle import StableDiffusion as TSD
+from guided_attention_tpu_torch.parallel.mesh import make_mesh
 from guided_attention_tpu_torch.pipeline import StepDiag
 from guided_attention_tpu_torch.runner import GuidedAttentionPipeline as TPipe
 from guided_attention_tpu_torch.runtime import checkpoint as ckpt
@@ -162,8 +163,11 @@ def test_batch_resumable_equals_generate_batch(pipe, tmp_path):
     assert [o.prompt for o in outs] == [w.prompt for w in want]
     for got, w in zip(outs, want):
         assert_same_bits(got, w)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 5"):
-        pipe.generate_batch_resumable(seeds, meta_prompts=prompts, mesh=object(), **kw)
+    # one process: a data-parallel mesh of one rank is the same run
+    outs = pipe.generate_batch_resumable(seeds, checkpoint_every=2, state_dir=str(tmp_path), meta_prompts=prompts,
+                                         mesh=make_mesh(), **kw)
+    for got, w in zip(outs, want):
+        assert_same_bits(got, w)
 
 
 def test_identity_guard_starts_fresh(pipe, tmp_path):

@@ -218,9 +218,9 @@ def test_warmup_serves_every_bucket_with_one_prompt_and_two():
 
 
 def test_engine_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 7"):
         tserver.BatchingEngine(FakePipe(), mesh=object(), _start_thread=False)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 7"):
         tserver.main(["--mesh_shape", '{"data": 2}'])
 
 

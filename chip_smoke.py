@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Run the PyTorch port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 1,2,3,13]
 
-Phases:
+``--phases`` runs the phases it names, with the card and the build (1, 2)
+and the phases they read from (9 and 12 read phase 8's tree, 10 reads
+phase 6's batch, 13 reads phase 5's image); without it, every phase.
+The kernels line needs phase 3. Phases:
   1. the card's name and power limit, torch/CUDA versions, TF32 settings;
   2. build the CUDA kernels from csrc/ (nvcc, sm_90a);
   3. hold each kernel against its plain PyTorch version on the card at the
@@ -122,7 +125,25 @@ Phases:
      one-process batch of them, images on rank 0 only; each rank must
      launch K1-K3 in (b) and in (c); readings: (b)'s seconds and s/image
      beside phase 8's, the launch's wall time, each rank's launches;
- 13. a {"kernels": [...]} line, then the last line
+ 13. the tensor axis and the served mesh, sd15 at full width: (d) in this
+     process, K1-K3 against their plain versions at the shapes a rank of
+     {"data": 1, "tensor": 2} launches (4 of 8 heads: K1 [8, 4096, 40], K2
+     [4, 4096, 40], K3 q [1, 4, 256, 160], a cluster of 4 blocks), timed;
+     then one torchrun launch of two ranks (``--tensor-parallel-rank DIR``;
+     on one card they share it and the tensor group is gloo, with two cards
+     or more each has its own and the group is NCCL; the backend is
+     printed): (a) a bf16 guidance eval through the kernels on each rank's
+     heads against the one process's (phase 4's limits), equal on both
+     ranks; (b) standard SD in float32 on the plain route, 10 steps, against
+     one process (phase 6's limits); (c) the main path's 50-step image at
+     tp2: well-formed, its step-0 evals and refinements phase 5's, s/image
+     beside phase 5's, K1-K3 launches and shapes per rank, all-reduces and
+     their bytes per image; (e) ``frontends.server`` over {"data": 2}
+     (buckets 2, 4): rank 0 serves three HTTP requests (15 steps, one
+     bucket-4 batch), rank 1 follows; every PNG byte for byte its rank's
+     one-process ``generate_batch`` of its two rows; ``/healthz`` names the
+     mesh; the server's stop ends the follower and both ranks exit 0;
+ 14. a {"kernels": [...]} line, then the last line
      {"ok": true, "device": {...}}.
 
 Any failed check or exception exits non-zero before the last line. Weights
@@ -581,10 +602,17 @@ def kernel_phase(results: dict) -> list:
     return kernels
 
 
-def eval_phase(sd, pipe, results: dict) -> dict:
-    """One full-width guidance eval of ``pipe``'s bundle (phase 4: sd15,
-    phase 11: sd21) through the kernels vs the plain attention path, same
-    latent and prompt; returns the two losses and the relative distances."""
+# a bf16 guidance eval against another route or placement of its sums
+# (phase 4's limits, and phase 13's): loss relative, gradient relative to
+# its largest entry
+EVAL_LOSS_REL, EVAL_GRAD_REL = 1e-4, 0.04
+
+
+def guidance_eval(pipe, sd):
+    """(loss, latent gradient in fp32) of one guidance eval of the main
+    path's prompt at the first step, on the bundle ``sd`` (``pipe``'s, or a
+    rank's tensor-sharded copy), from a latent drawn from seed 5 on its
+    device."""
     import torch
 
     from guided_attention_tpu_torch import workload
@@ -592,21 +620,29 @@ def eval_phase(sd, pipe, results: dict) -> dict:
     from guided_attention_tpu_torch.pipeline import _Loop
     from guided_attention_tpu_torch.runner import PrepareOptions
 
-    name = sd.config.name
     hp, _p, _a, spec, statics, sched, arrays, emb = pipe._prepare(
         PrepareOptions(meta_prompt=workload.META_PROMPT, sd_2_1=workload.is_sd21(pipe)))
-    g = torch.Generator(device="cuda").manual_seed(5)
+    g = torch.Generator(device=sd.device).manual_seed(5)
     s = sd.config.latent_size
-    lat = torch.randn((1, s, s, sd.config.unet.in_channels), generator=g, device="cuda").to(torch.bfloat16)
-    t = int(sched.timesteps[0])
+    lat = torch.randn((1, s, s, sd.config.unet.in_channels), generator=g, device=sd.device).to(torch.bfloat16)
+    loop = _Loop(sd, statics, hp, emb[None], stack_specs([spec]), sched, arrays, None, ("up", "down", "mid"))
+    with torch.no_grad():
+        loss, _aux, grad = loop.guidance_eval(lat, [0], int(sched.timesteps[0]), 0.0, lat)
+    return float(loss), grad.float()
+
+
+def eval_phase(sd, pipe, results: dict) -> dict:
+    """One full-width guidance eval of ``pipe``'s bundle (phase 4: sd15,
+    phase 11: sd21) through the kernels vs the plain attention path, same
+    latent and prompt; returns the two losses and the relative distances."""
+    import torch
+
+    name = sd.config.name
     cfg = sd.unet.config
     outs = {}
     for route, flash in (("kernels", True), ("plain", False)):
         sd.unet.config = dataclasses.replace(cfg, use_flash_attention=flash)
-        loop = _Loop(sd, statics, hp, emb[None], stack_specs([spec]), sched, arrays, None, ("up", "down", "mid"))
-        with torch.no_grad():
-            loss, aux, grad = loop.guidance_eval(lat, [0], t, 0.0, lat)
-        outs[route] = (float(loss), grad.float())
+        outs[route] = guidance_eval(pipe, sd)
     sd.unet.config = cfg
     (lk, gk), (lp, gp) = outs["kernels"], outs["plain"]
     log(f"  {name} eval loss kernels={lk:.6f} plain={lp:.6f}")
@@ -617,9 +653,9 @@ def eval_phase(sd, pipe, results: dict) -> dict:
     # the limits leave 2x room on sd15's loss and gradient (its maps come
     # from fp32 scores on both routes).
     loss_rel = abs(lk - lp) / abs(lp)
-    check(f"{name} eval loss (rel)", loss_rel, 1e-4, results)
+    check(f"{name} eval loss (rel)", loss_rel, EVAL_LOSS_REL, results)
     grad_rel = max_err(gk, gp) / float(gp.abs().max())
-    check(f"{name} eval grad (rel to max|grad|)", grad_rel, 0.04, results)
+    check(f"{name} eval grad (rel to max|grad|)", grad_rel, EVAL_GRAD_REL, results)
     if not (torch.isfinite(gk).all() and float(gk.abs().max()) > 0):
         raise SystemExit(f"{name} eval gradient through the kernels is not finite and nonzero")
     return {"loss_kernels": lk, "loss_plain": lp, "loss_rel": loss_rel, "grad_rel_to_max": grad_rel}
@@ -1726,7 +1762,413 @@ def dp_phase(pipe, results: dict) -> dict:
     return {k: [[info["cli_launches"][k], info["batch_launches"][k]] for info in ranks] for k in MAIN_PATH_KERNELS}
 
 
-def main() -> int:
+# the tensor-parallel phase (phase 13): two ranks in one torchrun launch (on
+# one card they share it, over gloo; with more cards each has its own, over
+# NCCL), each running this script's ``tp_rank``; their files go under
+# build/ (listed in .gitignore)
+TP_RANKS = 2
+TP_MESH = {"data": 1, "tensor": 2}
+TP_SERVE_MESH = {"data": 2}
+TP_SERVE_BUCKETS = (2, 4)  # every bucket divides by the data axis
+TP_SERVE_SEEDS = (50, 51, 52)  # three requests, padded to four: rows (50, 51) and (52, 52)
+TP_SERVE_STEPS = 15
+TP_SERVE_WAIT_MS = 2000.0
+TP_OUT = os.path.join("build", "chip_smoke_tp")
+TP_TIMEOUT_S = 420
+# the main path at tp2 launches each kernel as often as one process does, on
+# half the heads: 52 CFG forwards x 5 + 36 evals x 2 K1 calls, 36 x 2 K2
+# (two kernels each), 36 evals x 5 captured layers K3
+TP_PREDICTED_LAUNCHES = {"flash_self_fwd": 332, "flash_self_bwd": 72, "cross_attention_map_fwd": 180}
+
+
+def _record_kernel_shapes() -> dict:
+    """Wrap the K1-K3 launchers to record the shapes they launch (counted
+    per shape); returns the record, filled as they run."""
+    from guided_attention_tpu_torch.ops import flash_attention as fa
+
+    seen: dict = {}
+    for name, attr in (("flash_self_fwd", "_launch_k1"), ("flash_self_bwd", "_launch_k2"),
+                       ("cross_attention_map_fwd", "_launch_k3")):
+        launch = getattr(fa, attr)
+
+        def wrapped(q, *args, _launch=launch, _name=name):
+            key = f"{_name} {list(q.shape)}"
+            seen[key] = seen.get(key, 0) + 1
+            return _launch(q, *args)
+
+        setattr(fa, attr, wrapped)
+    return seen
+
+
+def tp_rank(out_dir: str) -> int:
+    """One rank of phase 13 (run by torchrun). On ``TP_MESH``: (a) one sd15
+    bf16 guidance eval through the kernels, this rank's slices and the one
+    process's whole UNet; (b) standard SD in float32 on the plain route,
+    ``STANDARD_STEPS`` steps, tensor mesh and one process; (c) the main
+    path's image, 50 steps, with the launch and collective counters zeroed
+    just before it. On ``TP_SERVE_MESH``: (e) rank 0 serves over HTTP three
+    requests (one bucket-4 batch), the other rank follows; each rank runs
+    the one-process batch of its two rows; the server stops its follower.
+    Writes ``out_dir/rank<r>.json`` and ``.npz``."""
+    import base64
+    import threading
+
+    import numpy as np
+    import torch
+
+    from guided_attention_tpu_torch import workload
+    from guided_attention_tpu_torch.frontends import server
+    from guided_attention_tpu_torch.models.bundle import StableDiffusion
+    from guided_attention_tpu_torch.ops import build
+    from guided_attention_tpu_torch.ops.flash_attention import LAUNCHES, reset_launches
+    from guided_attention_tpu_torch.parallel import multihost
+    from guided_attention_tpu_torch.parallel import tensor as ptensor
+    from guided_attention_tpu_torch.parallel.mesh import make_mesh
+    from guided_attention_tpu_torch.runner import GuidedAttentionPipeline
+    from guided_attention_tpu_torch.runtime.native import png_bytes
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent runs
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    build.load_library()
+    multihost.initialize()  # from torchrun's environment
+    dev = multihost.rank_device("cuda")
+    rank = multihost.process_index()
+    shapes = _record_kernel_shapes()
+    pipe = workload.create(str(dev))
+    tp = make_mesh(TP_MESH, device=dev)
+    info = {"rank": rank, "device": str(dev), "backend": tp.tensor_backend}
+    arrays = {}
+
+    # (a) the eval: this rank's heads, then one process's whole UNet
+    reset_launches()
+    info["eval_tp_loss"], grad = guidance_eval(pipe, pipe._sd_for(tp))
+    info["eval_launches"] = {k: LAUNCHES[k] for k in MAIN_PATH_KERNELS}
+    arrays["eval_tp_grad"] = grad.cpu().numpy()
+    info["eval_one_loss"], grad = guidance_eval(pipe, pipe.sd)
+    arrays["eval_one_grad"] = grad.cpu().numpy()
+
+    # (b) standard SD in float32, plain route (the kernels take bf16)
+    sd32 = StableDiffusion.create("sd15", torch.float32, device=dev, seed=workload.WEIGHT_SEED)
+    sd32.unet.config = dataclasses.replace(sd32.unet.config, use_flash_attention=False)
+    p32 = GuidedAttentionPipeline(sd32)
+    std = dict(meta_prompt=STANDARD_PROMPTS[0], num_inference_steps=STANDARD_STEPS, run_standard_sd=True,
+               decode=False, capture_diagnostics=False)
+    t0 = time.perf_counter()
+    arrays["standard_tp"] = p32.generate_batch([workload.TIMED_SEED], mesh=tp, **std)[0].latents
+    info["standard_tp_s"] = time.perf_counter() - t0
+    arrays["standard_one"] = p32.generate_batch([workload.TIMED_SEED], **std)[0].latents
+    del sd32, p32
+    torch.cuda.empty_cache()
+
+    # (c) the main path's image at tp2
+    shapes.clear()
+    reset_launches()
+    ptensor.reset_collectives()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = workload.generate_batch(pipe, [workload.TIMED_SEED], [workload.META_PROMPT], mesh=tp)[0]
+    torch.cuda.synchronize()
+    info["image_s"] = time.perf_counter() - t0
+    d = out.diagnostics
+    info.update(image_launches={k: LAUNCHES[k] for k in MAIN_PATH_KERNELS}, image_shapes=dict(shapes),
+                image_all_reduces=ptensor.COLLECTIVES["all_reduce"], image_all_reduce_bytes=ptensor.COLLECTIVES["bytes"],
+                n_evals_step0=int(d.n_evals[0]), refine_iters_step0=int(d.refine_iters[0]),
+                recursions_step0=int(d.recursions[0]), n_evals_total=int(d.n_evals.sum()))
+    arrays["image_latents"] = out.latents
+    if out.images_u8 is not None:
+        arrays["image_u8"] = out.images_u8
+
+    # (e) the served mesh, data parallel: rank 0 serves, the other follows
+    dp = make_mesh(TP_SERVE_MESH, device=dev)
+    per = TP_SERVE_BUCKETS[-1] // TP_RANKS
+    padded = list(TP_SERVE_SEEDS) + [TP_SERVE_SEEDS[-1]] * (TP_SERVE_BUCKETS[-1] - len(TP_SERVE_SEEDS))
+    rows = padded[rank * per:(rank + 1) * per]
+    knobs = dict(num_inference_steps=TP_SERVE_STEPS)
+    t0 = time.perf_counter()
+    if rank == 0:
+        engine = server.BatchingEngine(pipe, max_wait_ms=TP_SERVE_WAIT_MS, buckets=TP_SERVE_BUCKETS, mesh=dp)
+        httpd = server.make_server(engine, host="127.0.0.1", port=0)
+        port = httpd.server_address[1]
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        try:
+            status, body = _http(port, "GET", "/healthz")
+            info["healthz"] = json.loads(body)
+            replies = {}
+
+            def post(seed):
+                replies[seed] = _http(port, "POST", "/generate",
+                                      {"meta_prompt": workload.META_PROMPT, "seed": seed, **knobs})
+
+            posts = []
+            for seed in TP_SERVE_SEEDS:  # in seed order: the batch's rows are the seeds in turn
+                posts.append(threading.Thread(target=post, args=(seed,)))
+                posts[-1].start()
+                time.sleep(SERVE_HTTP_STAGGER_S)
+            for t in posts:
+                t.join(600)
+            info["served_status"] = [replies[s][0] for s in TP_SERVE_SEEDS]
+            served = [base64.b64decode(json.loads(replies[s][1])["image_png_b64"]) for s in TP_SERVE_SEEDS]
+            info["serve_stats"] = engine.snapshot()
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            engine.close()  # its stop message ends the follower
+    else:
+        info["followed"] = server.follow(pipe, dp)
+    info["serve_s"] = time.perf_counter() - t0
+    ref = pipe.generate_batch(rows, meta_prompt=workload.META_PROMPT, capture_diagnostics=False, **knobs)
+    info["serve_rows"] = rows
+    ref_png = [png_bytes(o.images_u8[0]) for o in ref]
+    if rank == 0:
+        info["served_png_equal"] = [served[b] == ref_png[b] for b in range(per)]
+    info["rank_s"] = time.perf_counter() - t_start
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
+    if rank != 0:
+        for b, png in enumerate(ref_png):
+            Path(out_dir, f"rank{rank}_row{b}.png").write_bytes(png)
+    else:
+        for seed, png in zip(TP_SERVE_SEEDS, served):
+            Path(out_dir, f"served_{seed}.png").write_bytes(png)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+    log(f"rank {rank} on {info['device']} ({tp.tensor_backend}): image {info['image_s']:.1f} s, launches "
+        f"{json.dumps(info['image_launches'])}, {info['image_all_reduces']} all-reduces")
+    multihost.barrier()
+    torch.distributed.destroy_process_group()  # the NCCL tensor group's resources with it
+    return 0
+
+
+def _tp_kernel_checks(results: dict) -> dict:
+    """Phase 13 (d): K1-K3 against their plain versions at the local-head
+    shapes a rank of ``TP_MESH`` launches on sd15 (4 of 8 heads): K1 [8,
+    4096, 40] (CFG, two rows), K2 [4, 4096, 40] (the eval), K3 q [1, 4, 256,
+    160] with 77 keys (a cluster of 4 blocks), phase 3's limits; timed as in
+    phase 3. Returns each kernel's row for the kernels line."""
+    import torch
+
+    from guided_attention_tpu_torch import perf_attn_kernel as pak
+    from guided_attention_tpu_torch.ops import flash_attention as fa
+    from guided_attention_tpu_torch.runtime.flops import bound_ms
+    from guided_attention_tpu_torch.runtime.timing import alternating_ms, graph_alternating_ms
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda", dtype=torch.float32).to(torch.bfloat16)
+
+    rows = {}
+    n, d = 4096, 40
+    scale = d**-0.5
+    q, k, v = randn(8, n, d), randn(8, n, d), randn(8, n, d)
+    o, lse = fa.flash_self_fwd(q, k, v, scale)
+    ref, lse_ref = fa.flash_self_fwd_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    tol = check_close(f"K1 out [8,{n},{d}] (tp2 CFG)", o, ref, results)
+    check(f"K1 lse [8,{n},{d}] (tp2 CFG)", max_err(lse, lse_ref), LSE_TOL, results)
+    b_ms, b_by = bound_ms(pak.fwd_flops(8, n, d), 4 * 8 * n * d * 2 + 8 * n * 4, exps=8 * n * n)
+    rows["flash_self_fwd"] = {"shape": [8, n, d], "max_abs_err": max_err(o, ref), "tol": tol, "bound_ms": b_ms,
+                              "bound_by": b_by, **alternating_ms({"ms": lambda: fa.flash_self_fwd(q, k, v, scale),
+                                                                  "plain_ms": lambda: fa.flash_self_plain(q, k, v, scale)})}
+    q, k, v, do = randn(4, n, d), randn(4, n, d), randn(4, n, d), randn(4, n, d)
+    o, lse = fa.flash_self_fwd(q, k, v, scale)
+    got = fa.flash_self_bwd(q, k, v, o, do, lse, scale)
+    want = fa.flash_self_bwd_plain(q, k, v, o, do, lse, scale)
+    torch.cuda.synchronize()
+    tols = [check_close(f"K2 {nm} [4,{n},{d}] (tp2 eval)", a, b, results) for nm, a, b in zip(("dq", "dk", "dv"), got, want)]
+    check_same(f"K2 twice [4,{n},{d}] (tp2 eval)", got, fa.flash_self_bwd(q, k, v, o, do, lse, scale), results)
+    b_ms, b_by = bound_ms(pak.bwd_flops(4, n, d), 8 * 4 * n * d * 2 + 4 * n * 4, exps=4 * n * n)
+    rows["flash_self_bwd"] = {"shape": [4, n, d], "max_abs_err": max(max_err(a, b) for a, b in zip(got, want)),
+                              "tol": min(tols), "bound_ms": b_ms, "bound_by": b_by,
+                              **alternating_ms({"ms": lambda: fa.flash_self_bwd(q, k, v, o, do, lse, scale),
+                                                "plain_ms": lambda: fa.flash_self_bwd_plain(q, k, v, o, do, lse, scale)})}
+    b, h, nq, nk, d = 1, 4, 256, 77, 160
+    q, k, v = randn(b, h, nq, d), randn(b, h, nk, d), randn(b, h, nk, d)
+    o, pmap = fa.cross_attention_map_fwd(q, k, v, d**-0.5)
+    o_ref, m_ref = fa.cross_attention_map_plain(q, k, v, d**-0.5)
+    torch.cuda.synchronize()
+    geo = fa.cross_map_geometry(b, h, nq, nk, d)
+    tol = check_close(f"K3 out [{b},{h},{nq},{d}] keys {nk} (tp2, cluster of {geo['cluster']})", o, o_ref, results)
+    check(f"K3 map [{b},{h},{nq},{d}] keys {nk} (tp2)", max_err(pmap, m_ref), 1e-5, results)
+    check_same(f"K3 twice [{b},{h},{nq},{d}] keys {nk} (tp2)", (o, pmap), fa.cross_attention_map_fwd(q, k, v, d**-0.5),
+               results)
+    b_ms, b_by = bound_ms(4.0 * b * h * nq * nk * d, (2 * b * h * nq * d + 2 * b * h * nk * d) * 2 + b * nq * nk * 4,
+                          exps=b * h * nq * nk)
+    graphs = graph_alternating_ms({"graph_ms": lambda: fa.cross_attention_map_fwd(q, k, v, d**-0.5),
+                                   "plain_graph_ms": lambda: fa.cross_attention_map_plain(q, k, v, d**-0.5)})
+    rows["cross_attention_map_fwd"] = {"shape": [b, h, nq, nk, d], "geometry": geo, "max_abs_err": max_err(o, o_ref),
+                                       "tol": tol, "map_max_abs_err": max_err(pmap, m_ref), "map_tol": 1e-5,
+                                       "bound_ms": b_ms, "bound_by": b_by, **graphs, "ms": graphs["graph_ms"],
+                                       "plain_ms": graphs["plain_graph_ms"]}
+    for name, row in rows.items():
+        log(f"  (d) {name} {row['shape']}: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return rows
+
+
+def tp_phase(results: dict) -> dict:
+    """Phase 13: the tensor axis and the served mesh. (d) in this process;
+    (a)-(c) and (e) in one torchrun launch of ``TP_RANKS`` ranks
+    (``tp_rank``). (a) each rank's eval loss within ``EVAL_LOSS_REL`` and
+    its gradient within ``EVAL_GRAD_REL`` of the one process's, both
+    bitwise equal across the ranks; (b) the float32 standard-SD latents
+    within ``STANDARD_MAX_REL`` / ``STANDARD_RMS_REL`` of one process's;
+    (c) the image well-formed, its step-0 evals and refinements phase 5's,
+    each rank launching K1-K3; (e) every served PNG byte for byte its
+    rank's one-process row, and both ranks exiting 0 once the server
+    stops. Returns the ranks' K1-K3 launches in (c) and (d)'s rows."""
+    import shutil
+    import signal
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from guided_attention_tpu_torch import workload
+
+    card = results["card"]
+    main = results["main"]
+    t_phase = time.perf_counter()
+    out: dict = {"kernels": _tp_kernel_checks(results)}
+    shutil.rmtree(TP_OUT, ignore_errors=True)
+    os.makedirs(TP_OUT)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(TP_RANKS),
+           os.path.abspath(__file__), "--tensor-parallel-rank", TP_OUT]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, start_new_session=True)
+    try:
+        rc = proc.wait(timeout=TP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        raise SystemExit(f"phase 13: the ranks did not finish within {TP_TIMEOUT_S} s")
+    out["launch_wall_s"] = time.perf_counter() - t0
+    if rc != 0:
+        raise SystemExit(f"phase 13: torchrun exited with {rc}")
+    ranks, arrays = [], []
+    for r in range(TP_RANKS):
+        with open(os.path.join(TP_OUT, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+        arrays.append(dict(np.load(os.path.join(TP_OUT, f"rank{r}.npz"))))
+    backends = sorted({info["backend"] for info in ranks})
+    out["backend"], out["ranks_on_cards"] = backends, [TP_RANKS, torch.cuda.device_count()]
+    log(f"  tensor group: {TP_RANKS} ranks on {torch.cuda.device_count()} card(s), backend {', '.join(backends)} "
+        f"(devices {[info['device'] for info in ranks]})")
+
+    # (a) the eval at full width
+    r0 = ranks[0]
+    loss_rel = abs(r0["eval_tp_loss"] - r0["eval_one_loss"]) / abs(r0["eval_one_loss"])
+    gt, go = arrays[0]["eval_tp_grad"], arrays[0]["eval_one_grad"]
+    grad_rel = float(np.abs(gt - go).max() / np.abs(go).max())
+    same_ranks = all(info["eval_tp_loss"] == r0["eval_tp_loss"] and np.array_equal(a["eval_tp_grad"], gt)
+                     for info, a in zip(ranks[1:], arrays[1:]))
+    log(f"  (a) sd15 eval at {json.dumps(TP_MESH)}: loss {r0['eval_tp_loss']:.6f} against one process "
+        f"{r0['eval_one_loss']:.6f}; equal on every rank {same_ranks}; launches {json.dumps(r0['eval_launches'])}")
+    check("tp2 eval loss (rel)", loss_rel, EVAL_LOSS_REL, results)
+    check("tp2 eval grad (rel to max|grad|)", grad_rel, EVAL_GRAD_REL, results)
+    if not same_ranks or not np.isfinite(gt).all() or not np.abs(gt).max() > 0:
+        raise SystemExit("phase 13 (a): the eval differs between the ranks, or its gradient is not finite and nonzero")
+    out["eval"] = {"loss_tp": r0["eval_tp_loss"], "loss_one": r0["eval_one_loss"], "loss_rel": loss_rel,
+                   "grad_rel_to_max": grad_rel, "equal_on_ranks": same_ranks}
+
+    # (b) standard SD, float32, plain route
+    st, so = torch.from_numpy(arrays[0]["standard_tp"]), torch.from_numpy(arrays[0]["standard_one"])
+    std_rel, std_rms = rel_max_err(st, so), rms_rel_err(st, so)
+    std_same = all(np.array_equal(a["standard_tp"], arrays[0]["standard_tp"]) for a in arrays[1:])
+    log(f"  (b) standard SD float32, {STANDARD_STEPS} steps, plain route: tp2 against one process rel max "
+        f"{std_rel:.3e}, rel rms {std_rms:.3e}; equal on every rank {std_same}; tp2 {r0['standard_tp_s']:.1f} s")
+    check("tp2 standard-SD float32 against one process (rel to max|latent|)", std_rel, STANDARD_MAX_REL, results,
+          rms_rel=std_rms)
+    if std_rms > STANDARD_RMS_REL or not std_same:
+        raise SystemExit(f"phase 13 (b): relative rms {std_rms} above {STANDARD_RMS_REL}, or the ranks differ")
+    out["standard"] = {"rel_max": std_rel, "rel_rms": std_rms, "equal_on_ranks": std_same, "s": r0["standard_tp_s"]}
+
+    # (c) the main path's image at tp2
+    img = arrays[0].get("image_u8")
+    lat = arrays[0]["image_latents"]
+    well = (img is not None and img.shape == (1, CLI_IMAGE, CLI_IMAGE, 3) and float(img.std()) > 0
+            and bool(np.isfinite(lat).all()))
+    same_diag = all(info["n_evals_step0"] == main["n_evals_step0"]
+                    and info["refine_iters_step0"] == main["refine_iters_step0"] for info in ranks)
+    image = {"s_per_image": [info["image_s"] for info in ranks], "phase5_s_per_image": main["s_per_image"],
+             "n_evals_step0": [info["n_evals_step0"] for info in ranks],
+             "refine_iters_step0": [info["refine_iters_step0"] for info in ranks],
+             "phase5_step0": [main["n_evals_step0"], main["refine_iters_step0"]],
+             "launches": [info["image_launches"] for info in ranks], "predicted_launches": TP_PREDICTED_LAUNCHES,
+             "shapes": [info["image_shapes"] for info in ranks],
+             "all_reduces": [info["image_all_reduces"] for info in ranks],
+             "all_reduce_bytes": [info["image_all_reduce_bytes"] for info in ranks],
+             "well_formed": well, "step0_as_phase5": same_diag,
+             "image_std": None if img is None else float(img.std())}
+    out["image"] = image
+    log(f"  (c) main path at {json.dumps(TP_MESH)}, {workload.STEPS} steps: "
+        f"{json.dumps(image['s_per_image'])} s/image per rank (phase 5, one process: {main['s_per_image']:.3f}); "
+        f"step 0 evals / refinements {image['n_evals_step0']} / {image['refine_iters_step0']} (phase 5: "
+        f"{main['n_evals_step0']} / {main['refine_iters_step0']}); well-formed {well} ({card})")
+    for info in ranks:
+        log(f"  (c) rank {info['rank']}: launches {json.dumps(info['image_launches'])} (predicted "
+            f"{json.dumps(TP_PREDICTED_LAUNCHES)}); shapes {json.dumps(info['image_shapes'])}; "
+            f"{info['image_all_reduces']} all-reduces, {info['image_all_reduce_bytes'] / 1e9:.3f} GB per image")
+        if min(info["image_launches"].values()) <= 0:
+            raise SystemExit(f"phase 13 (c): rank {info['rank']} launched no {info['image_launches']}")
+    if not well or not same_diag:
+        raise SystemExit("phase 13 (c): the tp2 image is malformed, or its step-0 diagnostics are not phase 5's")
+
+    # (e) the served mesh
+    served = [Path(TP_OUT, f"served_{s}.png").read_bytes() for s in TP_SERVE_SEEDS]
+    per = TP_SERVE_BUCKETS[-1] // TP_RANKS
+    rank1_rows = [Path(TP_OUT, f"rank1_row{b}.png").read_bytes() for b in range(per)]
+    equal = r0["served_png_equal"] + [served[per + b] == rank1_rows[b] for b in range(len(served) - per)]
+    decoded = [decode_png(p).shape for p in served]
+    health = r0["healthz"]
+    serve = {"seeds": list(TP_SERVE_SEEDS), "steps": TP_SERVE_STEPS, "status": r0["served_status"],
+             "png_equal_one_process_rows": equal, "decoded": [list(sh) for sh in decoded], "healthz": health,
+             "followed": ranks[1].get("followed"), "batch_sizes": r0["serve_stats"]["batch_sizes"],
+             "serve_s": r0["serve_s"], "rows": [info["serve_rows"] for info in ranks]}
+    out["serve"] = serve
+    log(f"  (e) served mesh {json.dumps(TP_SERVE_MESH)}, buckets {list(TP_SERVE_BUCKETS)}: three requests, status "
+        f"{serve['status']}, batch sizes {serve['batch_sizes']}, rows per rank {serve['rows']}; PNGs byte for byte "
+        f"the one-process rows {equal}; /healthz mesh {health.get('mesh')}; rank 1 followed {serve['followed']} "
+        f"batch(es) and stopped; {r0['serve_s']:.1f} s")
+    if (not all(equal) or serve["status"] != [200] * len(TP_SERVE_SEEDS) or health.get("mesh") != TP_SERVE_MESH
+            or serve["followed"] != 1 or serve["batch_sizes"] != {str(TP_SERVE_BUCKETS[-1]): 1}):
+        raise SystemExit("phase 13 (e): the served mesh's PNGs, statuses, mesh or batches are not as expected")
+
+    out["ranks"] = ranks
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"tensor-parallel phase: {out['phase_s']:.1f} s, torchrun launch {out['launch_wall_s']:.1f} s ({card})")
+    results["tensor_parallel"] = out
+    return {k: [info["image_launches"][k] for info in ranks] for k in MAIN_PATH_KERNELS}
+
+
+# --phases: what a phase reads from another one's run
+PHASES = tuple(range(1, 14))
+PHASE_NEEDS = {9: (8,), 10: (6,), 12: (8,), 13: (5,)}
+
+
+def selected_phases(argv) -> list:
+    """The phases ``--phases 1,2,3,13`` names, with the phases they read
+    from (``PHASE_NEEDS``) and the card and build (1, 2); every phase
+    without the flag."""
+    if "--phases" not in argv:
+        return list(PHASES)
+    i = argv.index("--phases")
+    try:
+        chosen = {int(x) for x in argv[i + 1].split(",")}
+    except (IndexError, ValueError):
+        raise SystemExit("--phases takes a comma-separated list of phase numbers, e.g. --phases 1,2,3,13")
+    if not chosen <= set(PHASES):
+        raise SystemExit(f"--phases: no phase {sorted(chosen - set(PHASES))}; the phases are 1-{PHASES[-1]}")
+    todo = list(chosen | {1, 2})
+    while todo:
+        for need in PHASE_NEEDS.get(todo.pop(), ()):
+            if need not in chosen:
+                chosen.add(need)
+                todo.append(need)
+    return sorted(chosen | {1, 2})
+
+
+def main(argv=()) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1741,8 +2183,9 @@ def main() -> int:
     from guided_attention_tpu_torch.runtime import flops
     from guided_attention_tpu_torch.runtime.timing import card_name_and_power
 
+    phases = selected_phases(list(argv))
     t_start = time.perf_counter()
-    results: dict = {}
+    results: dict = {"phases": phases}
     # ---- 1. device
     card = card_name_and_power()
     log(card)
@@ -1751,6 +2194,7 @@ def main() -> int:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     log(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} cudnn={torch.backends.cudnn.allow_tf32}")
+    log(f"phases: {phases}")
     results["card"] = card
 
     # ---- 2. build
@@ -1768,64 +2212,69 @@ def main() -> int:
             log("  " + line.strip())
 
     # ---- 3. kernels against their plain versions
-    kernels = kernel_phase(results)
+    kernels = kernel_phase(results) if 3 in phases else []
 
     # ---- 4 and 5. the main path
-    t0 = time.perf_counter()
-    pipe = workload.create("cuda")
-    sd = pipe.sd
-    torch.cuda.synchronize()
-    results["create_s"] = time.perf_counter() - t0
-    log(f"sd15 bf16 random init on the card: {results['create_s']:.1f} s")
-    results["eval_sd15"] = eval_phase(sd, pipe, results)
+    pipe = None
+    if {4, 5, 6, 9, 10, 12} & set(phases):
+        t0 = time.perf_counter()
+        pipe = workload.create("cuda")
+        torch.cuda.synchronize()
+        results["create_s"] = time.perf_counter() - t0
+        log(f"sd15 bf16 random init on the card: {results['create_s']:.1f} s")
+    if 4 in phases:
+        results["eval_sd15"] = eval_phase(pipe.sd, pipe, results)
 
-    t0 = time.perf_counter()
-    workload.generate(pipe, workload.WARMUP_SEED)
-    torch.cuda.synchronize()
-    results["warmup_s"] = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t0 = time.perf_counter()
-    out = workload.generate(pipe, workload.TIMED_SEED)
-    torch.cuda.synchronize()
-    sec = time.perf_counter() - t0
-    launches = {name: LAUNCHES[name] for name in MAIN_PATH_KERNELS}
-    d = out.diagnostics
-    gen_flops = flops.generation_flops(sd.unet.config, d, workload.STEPS)
-    img = out.images_u8
-    main = {
-        "s_per_image": sec,
-        "warmup_s": results["warmup_s"],
-        "steps": workload.STEPS,
-        "n_evals_step0": int(d.n_evals[0]),
-        "refine_iters_step0": int(d.refine_iters[0]),
-        "recursions_step0": int(d.recursions[0]),
-        "n_evals_total": int(d.n_evals.sum()),
-        "image_shape": list(img.shape),
-        "latents_finite": bool(np.isfinite(out.latents.astype(np.float32)).all()),
-        "image_std": float(img.std()),
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "unet_tflop": gen_flops / 1e12,
-        "mfu": flops.mfu(gen_flops, sec),
-        "launches": launches,
-    }
-    results["main"] = main
-    log("main path: " + json.dumps(main))
-    log(f"main path model-FLOP share: {main['unet_tflop']:.3f} TFLOP of UNet work in {sec:.3f} s = "
-        f"{100 * main['mfu']:.3f}% of the {flops.H100_BF16_PEAK_FLOPS / 1e12:.0f} TF/s bf16 peak ({card})")
-    if img.shape != (1, 512, 512, 3) or not main["latents_finite"] or main["image_std"] <= 0:
-        raise SystemExit("main path output is malformed (shape, finiteness or constant image)")
+    launches: dict = {}
+    if 5 in phases:
+        t0 = time.perf_counter()
+        workload.generate(pipe, workload.WARMUP_SEED)
+        torch.cuda.synchronize()
+        results["warmup_s"] = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = workload.generate(pipe, workload.TIMED_SEED)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches.update({name: LAUNCHES[name] for name in MAIN_PATH_KERNELS})
+        d = out.diagnostics
+        gen_flops = flops.generation_flops(pipe.sd.unet.config, d, workload.STEPS)
+        img = out.images_u8
+        main = {
+            "s_per_image": sec,
+            "warmup_s": results["warmup_s"],
+            "steps": workload.STEPS,
+            "n_evals_step0": int(d.n_evals[0]),
+            "refine_iters_step0": int(d.refine_iters[0]),
+            "recursions_step0": int(d.recursions[0]),
+            "n_evals_total": int(d.n_evals.sum()),
+            "image_shape": list(img.shape),
+            "latents_finite": bool(np.isfinite(out.latents.astype(np.float32)).all()),
+            "image_std": float(img.std()),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "unet_tflop": gen_flops / 1e12,
+            "mfu": flops.mfu(gen_flops, sec),
+            "launches": dict(launches),
+        }
+        results["main"] = main
+        log("main path: " + json.dumps(main))
+        log(f"main path model-FLOP share: {main['unet_tflop']:.3f} TFLOP of UNet work in {sec:.3f} s = "
+            f"{100 * main['mfu']:.3f}% of the {flops.H100_BF16_PEAK_FLOPS / 1e12:.0f} TF/s bf16 peak ({card})")
+        if img.shape != (1, 512, 512, 3) or not main["latents_finite"] or main["image_std"] <= 0:
+            raise SystemExit("main path output is malformed (shape, finiteness or constant image)")
 
     # ---- 6. the batch path
-    batch_launches = batch_phase(pipe, results)
+    batch_launches = batch_phase(pipe, results) if 6 in phases else None
 
     # ---- 7. the microbench path
-    reset_launches()
-    bench = perf_attn_kernel.run(reps=MICROBENCH_REPS)
-    torch.cuda.synchronize()
-    perf_attn_kernel.report(bench)
-    results["microbench"] = bench
-    launches.update({name: LAUNCHES[name] for name in MICROBENCH_KERNELS})
+    if 7 in phases:
+        reset_launches()
+        bench = perf_attn_kernel.run(reps=MICROBENCH_REPS)
+        torch.cuda.synchronize()
+        perf_attn_kernel.report(bench)
+        results["microbench"] = bench
+        launches.update({name: LAUNCHES[name] for name in MICROBENCH_KERNELS})
     log("launches: " + json.dumps(launches))
     for name, count in launches.items():
         if count <= 0:
@@ -1833,35 +2282,43 @@ def main() -> int:
             raise SystemExit(f"kernel {name} was not launched on the {path} path")
 
     # ---- 8. the CLI path
-    cli_launches = cli_phase(results)
+    cli_launches = cli_phase(results) if 8 in phases else None
 
     # ---- 9. resumable runs and native checkpoints
-    resumed_launches = resume_phase(pipe, results)
+    resumed_launches = resume_phase(pipe, results) if 9 in phases else None
 
     # ---- 10. serving
-    serve_launches = serve_phase(pipe, results)
+    serve_launches = serve_phase(pipe, results) if 10 in phases else None
 
     # ---- 11. SD2.1 at full width, and the parity traces
-    sd21_launches = sd21_phase(results)
+    sd21_launches = sd21_phase(results) if 11 in phases else None
 
     # ---- 12. data parallelism: one process, then two ranks on the card
-    dp_launches = dp_phase(pipe, results)
+    dp_launches = dp_phase(pipe, results) if 12 in phases else None
+
+    # ---- 13. the tensor axis and the served mesh: two ranks
+    tp_launches = tp_phase(results) if 13 in phases else None
 
     for row in kernels:
-        row["launches"] = launches[row["name"]]
-        if row["name"] in batch_launches:
-            row["batch_launches"] = batch_launches[row["name"]]
-            row["cli_launches"] = cli_launches[row["name"]]
-            row["resumed_launches"] = resumed_launches[row["name"]]
-            row["serve_launches"] = serve_launches[row["name"]]
-            row["sd21_launches"] = sd21_launches[row["name"]]
-            # per rank: [CLI run, Python batch]
-            row["data_parallel_launches"] = dp_launches[row["name"]]
+        row["launches"] = launches.get(row["name"])
+        if row["name"] not in MAIN_PATH_KERNELS:
+            continue
+        for key, counts in (("batch_launches", batch_launches), ("cli_launches", cli_launches),
+                            ("resumed_launches", resumed_launches), ("serve_launches", serve_launches),
+                            ("sd21_launches", sd21_launches),
+                            # per rank: [CLI run, Python batch]
+                            ("data_parallel_launches", dp_launches),
+                            # per rank: the main path's image at tp2
+                            ("tensor_parallel_launches", tp_launches)):
+            if counts is not None:
+                row[key] = counts[row["name"]]
+        if tp_launches is not None:
+            row["tensor_parallel_shape"] = results["tensor_parallel"]["kernels"][row["name"]]
 
-    # ---- 13. the kernels line; exponentials are operations: the line names
-    # the two kinds of bound
+    # ---- the kernels line; exponentials are operations: the line names the
+    # two kinds of bound
     for row in kernels:
-        for r in (row, row.get("batch_shape") or {}, row.get("sd21_shape") or {}):
+        for r in (row, row.get("batch_shape") or {}, row.get("sd21_shape") or {}, row.get("tensor_parallel_shape") or {}):
             if r.get("bound_by") == "exp":
                 r["bound_by"], r["bound_by_unit"] = "operations", "exponentials"
     results["kernels"] = kernels
@@ -1871,7 +2328,8 @@ def main() -> int:
         json.dump(results, f, indent=1)
     log(f"total {results['total_s']:.1f} s")
     log(card)
-    log(json.dumps({"kernels": kernels}))
+    if kernels:
+        log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0
@@ -1880,4 +2338,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--data-parallel-rank"]:
         sys.exit(dp_rank(sys.argv[2]))
-    sys.exit(main())
+    if sys.argv[1:2] == ["--tensor-parallel-rank"]:
+        sys.exit(tp_rank(sys.argv[2]))
+    sys.exit(main(sys.argv[1:]))

@@ -26,9 +26,11 @@ each with ``--num_processes N --process_id I --coordinator_address
 host:port``. The batch path then splits each chunk over the mesh's data axis
 (``--mesh_shape '{"data": N}'``, the default over N processes), padded up
 to it by repeating the chunk's last sample (the padded outputs are
-dropped), and only rank 0 writes the artifact tree. Refused with
-NotImplementedError: the mesh's tensor axis, and ``--interactive`` over
-several processes (the server's mesh; ROADMAP.md Queue 1 item 7).
+dropped), and only rank 0 writes the artifact tree. A tensor axis
+(``--mesh_shape '{"data": 1, "tensor": 2}'``) splits the UNet's
+transformer projections over the ranks of each data row (``parallel/``).
+``--interactive`` over several processes serves the web UI from rank 0
+while the other ranks follow each batch (``frontends/server.follow``).
 """
 from __future__ import annotations
 
@@ -90,14 +92,6 @@ def parse_args(argv: Optional[List[str]] = None) -> RunConfig:
     return config
 
 
-def check_supported(config: RunConfig) -> None:
-    """Refuse the options the port does not run yet, naming their ROADMAP item."""
-    if (config.mesh_shape or {}).get("tensor", 1) > 1:
-        raise NotImplementedError(
-            "--mesh_shape with a tensor axis (Megatron-style UNet projections over several GPUs) is not in the "
-            "PyTorch port yet: ROADMAP.md Queue 1 item 7")
-
-
 def setup(config: RunConfig):
     """Load the model and build the pipeline (reference run.py:139-145)."""
     from guided_attention_tpu_torch.runner import pipeline_from_config
@@ -127,12 +121,12 @@ def plan_batch_chunks(config: RunConfig, states: List[HyperParams]):
 
 
 def execute(config: RunConfig, pipe, hyperparam_iterations: Optional[List[Dict[str, Any]]] = None,
-            stats: Optional[Dict[str, float]] = None):
+            stats: Optional[Dict[str, float]] = None, mesh=None):
     """Seeds x hyperparameter sweep with artifact output (reference
     run.py:93-135). Returns the last final image's path (None for no
     seeds); ``stats``, when given, receives the images made and the
-    seconds spent generating and writing artifacts."""
-    check_supported(config)
+    seconds spent generating and writing artifacts. ``mesh`` is the
+    config's (``--mesh_shape``), made here when not given."""
     if multihost.is_primary():  # artifacts are rank 0's job
         config.ensure_output_dir()
     if hyperparam_iterations is None:
@@ -183,7 +177,8 @@ def execute(config: RunConfig, pipe, hyperparam_iterations: Optional[List[Dict[s
 
     # several processes (or an explicit mesh): every chunk is split over the
     # data axis, padded up to it by repeating its last sample
-    mesh = make_mesh(config.mesh_shape) if config.mesh_shape or multihost.process_count() > 1 else None
+    if mesh is None:
+        mesh = _mesh(config)
     data = mesh.shape.get("data", 1) if mesh is not None else 1
 
     t0 = time.perf_counter()
@@ -261,20 +256,33 @@ def execute(config: RunConfig, pipe, hyperparam_iterations: Optional[List[Dict[s
     return image_path
 
 
+def _mesh(config: RunConfig):
+    """The mesh of ``--mesh_shape`` (default over several processes:
+    ``{"data": N}``), or None for one process without one."""
+    if not config.mesh_shape and multihost.process_count() == 1:
+        return None
+    return make_mesh(config.mesh_shape, device=config.device)
+
+
 def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = None):
     """Parse ``argv`` (default: the command line), join the process group
     of a multi-process launch, build the pipeline on this rank's device and
     run the sweep, or serve the web UI with ``--interactive``; ``stats``
     goes to ``execute``."""
     config = parse_args(argv)
-    check_supported(config)
     multihost.initialize(config.coordinator_address, config.num_processes, config.process_id)
-    if config.interactive and multihost.process_count() > 1:
-        raise NotImplementedError("--interactive over several processes (the server's mesh) is not in the PyTorch "
-                                  "port yet: ROADMAP.md Queue 1 item 7")
     config.device = str(multihost.rank_device(config.device))
+    mesh = _mesh(config)  # before the model: a mesh the process group cannot hold is refused at once
     pipe = setup(config)
-    if config.interactive:
+    if config.interactive and mesh is not None:
+        from guided_attention_tpu_torch.frontends.gui import run_server
+        from guided_attention_tpu_torch.frontends.server import follow
+
+        if multihost.is_primary():
+            run_server(config, pipe, mesh=mesh)
+        else:
+            follow(pipe, mesh)
+    elif config.interactive:
         from guided_attention_tpu_torch.frontends.gui import run_server
 
         run_server(config, pipe)
@@ -285,14 +293,14 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = N
         if pipe.sd.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         with profile(activities=activities) as prof:
-            execute(config, pipe, stats=stats)
+            execute(config, pipe, stats=stats, mesh=mesh)
         if multihost.is_primary():
             out_dir = Path(config.profile_dir)
             out_dir.mkdir(parents=True, exist_ok=True)
             prof.export_chrome_trace(str(out_dir / "trace.json"))
             print(f"profiler trace written to {out_dir / 'trace.json'}")
     else:
-        execute(config, pipe, stats=stats)
+        execute(config, pipe, stats=stats, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Interactive web UI backend on one GPU (the CLI's ``--interactive``).
+"""Interactive web UI backend (the CLI's ``--interactive``).
 
 Counterpart of the JAX package's ``frontends/gui.py``, with the reference
 Flask app's protocol (reference gui.py:14-45):
@@ -13,6 +13,10 @@ goes through the serving engine (``frontends/server.BatchingEngine``), so
 two users who submit at once share one batch. Artifact writing (the
 reference's per-seed output block) is serialised: matplotlib's figure
 manager, used at ``diagnostic_level > 0``, is not thread-safe.
+
+Over several processes, one GPU each (``parallel/``), rank 0 serves the UI
+through an engine over the mesh and every other rank follows its batches
+(``frontends/server.follow``); the CLI arranges both.
 """
 from __future__ import annotations
 
@@ -57,10 +61,11 @@ def _config_knobs(config, base_hp):
 
 
 def run_server(config, pipe, host: str = "127.0.0.1", port: int = 5000, once: bool = False, engine=None,
-               max_wait_ms: float = 150.0):
+               max_wait_ms: float = 150.0, mesh=None):
     """Serve the interactive UI; ``once`` handles one request and returns.
     ``engine`` shares a BatchingEngine (co-hosting with the inference
-    server); otherwise one with the default buckets is made, and closed on
+    server); otherwise one with the default buckets is made (over
+    ``mesh``: the default buckets times its data axis), and closed on
     return."""
     from guided_attention_tpu_torch.annotation import parse_prompt
     from guided_attention_tpu_torch.config import HyperParams
@@ -69,7 +74,9 @@ def run_server(config, pipe, host: str = "127.0.0.1", port: int = 5000, once: bo
 
     own_engine = engine is None
     if own_engine:
-        engine = BatchingEngine(pipe, max_wait_ms=max_wait_ms)
+        data = 1 if mesh is None else mesh.shape.get("data", 1)
+        engine = BatchingEngine(pipe, max_wait_ms=max_wait_ms, buckets=tuple(data * b for b in (1, 2, 4, 8)),
+                                mesh=mesh)
     static_dir = config.output_path / "static"
     static_dir.mkdir(parents=True, exist_ok=True)
     artifact_lock = threading.Lock()

@@ -1,4 +1,4 @@
-"""The serving front end on one GPU: a micro-batching HTTP inference server.
+"""The serving front end: a micro-batching HTTP inference server.
 
 Counterpart of the JAX package's ``frontends/server.py``. Concurrent
 requests are prepared on arrival (prompt grammar, spec, CLIP embedding
@@ -38,9 +38,20 @@ guidance eval), and the card trails the host by little. So:
   and the card's name (:569 reads ``jax.devices()``); the x0-decode
   compile guard (:534-550) has no counterpart, since nothing compiles per
   shape.
-- One GPU: ``mesh=`` and ``--mesh_shape`` raise NotImplementedError. Over
-  several processes rank 0 would serve and every other rank follow each
-  batch in lockstep (ROADMAP.md Queue 1 item 7).
+- **A mesh is several processes in lockstep.** The JAX server hands its
+  mesh to one jitted program over every device of its process (:395-396).
+  Here one process drives one GPU (``parallel/``): rank 0 runs the engine
+  (``BatchingEngine(mesh=)``) and the HTTP server, and every other rank
+  runs ``follow(pipe, mesh)``. For each group rank 0 broadcasts over the
+  world group what it is about to dispatch (the padded seeds and prompts,
+  the knobs), and every rank makes the same ``dispatch_batch(...,
+  mesh=)``. When the engine is idle it broadcasts a tick within the
+  group's timeout, and when it closes a stop, which ends the followers. A
+  rank whose part of a batch fails makes ``dispatch_batch`` raise on every
+  rank (``parallel.batch.BatchFailed``): the group's requests get an error
+  and the ranks stay in step; a rank that dies makes the others' next
+  collective time out (``multihost.TIMEOUT_S``), so requests fail rather
+  than hang. Every bucket must divide by the mesh's data axis (:183-191).
 
 HTTP protocol (stdlib ThreadingHTTPServer; handler threads block on their
 ticket, the batcher thread runs every batch):
@@ -50,11 +61,15 @@ ticket, the batcher thread runs every batch):
        -> {"seed", "prompt", "width", "height", "image_png_b64",
            "artifacts_path"?}
        400 invalid request | 503 queue full (load shed) | 504 timeout
-  GET  /healthz  -> {"ok", "device", "device_name", "model"}
+  GET  /healthz  -> {"ok", "device", "device_name", "model"}, and "mesh"
+                    ({"data": ..., "tensor": ...}) when serving over one
   GET  /stats    -> batching counters (requests, batches, sizes, padding,
                     shed) + e2e latency percentiles (p50/p95/max)
 
 Run:  python -m guided_attention_tpu_torch.frontends.server --model sd15 --port 8100 [--warmup]
+Over N GPUs, one process each (rank 0 serves):
+      python -m torch.distributed.run --standalone --nproc_per_node N \
+          -m guided_attention_tpu_torch.frontends.server --mesh_shape '{"data": N}' --buckets N,2N
 """
 from __future__ import annotations
 
@@ -63,12 +78,15 @@ import dataclasses
 import itertools
 import json
 import random
+import sys
 import threading
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
 from guided_attention_tpu_torch.config import HyperParams
+from guided_attention_tpu_torch.parallel import multihost
+from guided_attention_tpu_torch.parallel.batch import BatchFailed
 from guided_attention_tpu_torch.runner import GuidedAttentionPipeline, PipelineOutput, PrepareOptions
 
 # Request knobs the server accepts: every PrepareOptions field except the
@@ -169,12 +187,60 @@ class ServeTicket:
         return self._output
 
 
+def _check_buckets(buckets: Tuple[int, ...], mesh) -> Tuple[int, ...]:
+    """The batch sizes, sorted; over a mesh each must divide by its data
+    axis, since the batch axis splits over "data"."""
+    out = tuple(sorted(set(int(b) for b in buckets)))
+    if not out or out[0] < 1:
+        raise ValueError(f"invalid batch buckets: {buckets}")
+    data = 1 if mesh is None else mesh.shape.get("data", 1)
+    bad = [b for b in out if b % data]
+    if bad:
+        raise ValueError(f"buckets {bad} not divisible by the mesh data axis ({data})")
+    return out
+
+
+def _run_lockstep(pipe: GuidedAttentionPipeline, msg: Dict[str, Any], mesh):
+    """The ``dispatch_batch`` of one lockstep message (every rank's call)."""
+    prompts, kwargs = msg["prompts"], dict(msg["knobs"])
+    if mesh is not None:  # the JAX engine's keywords otherwise
+        kwargs["mesh"] = mesh
+    if all(p == prompts[0] for p in prompts):
+        return pipe.dispatch_batch(msg["seeds"], meta_prompt=prompts[0], **kwargs)
+    return pipe.dispatch_batch(msg["seeds"], meta_prompts=prompts, **kwargs)
+
+
+def follow(pipe: GuidedAttentionPipeline, mesh) -> int:
+    """A rank other than 0 of a served mesh: run every batch rank 0's
+    engine dispatches, in lockstep, until its stop message. A batch that
+    fails on any rank fails on all of them (``BatchFailed``): rank 0
+    answers its requests with the error and this rank waits for the next.
+    Returns the number of batches run."""
+    if multihost.is_primary():
+        raise RuntimeError("follow() runs on the ranks other than 0; rank 0 runs the BatchingEngine")
+    done = 0
+    while True:
+        msg = multihost.broadcast_object(None)
+        if msg["op"] == "stop":
+            return done
+        if msg["op"] != "batch":  # an idle tick
+            continue
+        try:
+            _run_lockstep(pipe, msg, mesh).result()
+        except BatchFailed as e:
+            print(f"rank {multihost.process_index()}: batch failed: {e}", file=sys.stderr, flush=True)
+        done += 1
+
+
 class BatchingEngine:
-    """Coalesces concurrent generation requests into batches on one GPU.
+    """Coalesces concurrent generation requests into batches.
 
     Thread model: any number of producer threads call ``submit``, which
     prepares the request in the caller's thread; one batcher thread runs
-    every batch and delivers it before it gathers the next group.
+    every batch and delivers it before it gathers the next group. With a
+    ``mesh`` (``parallel.make_mesh``) the engine runs on rank 0 and every
+    other rank runs ``follow``: the batcher thread broadcasts each group
+    before its dispatch, a tick when idle and a stop when the engine closes.
     """
 
     def __init__(
@@ -188,13 +254,13 @@ class BatchingEngine:
     ):
         self.pipe = pipe
         self.max_wait_s = max_wait_ms / 1000.0
-        self.buckets = tuple(sorted(set(int(b) for b in buckets)))
-        if not self.buckets or self.buckets[0] < 1:
-            raise ValueError(f"invalid batch buckets: {buckets}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (a server whose batches follow other ranks in lockstep) is not in the PyTorch port yet: "
-                "ROADMAP.md Queue 1 item 7")
+        self.buckets = _check_buckets(buckets, mesh)
+        self.mesh = mesh
+        if mesh is not None and not multihost.is_primary():
+            raise RuntimeError("the engine of a mesh runs on rank 0; the other ranks run follow()")
+        # a follower waits for the next message in a collective: tick well
+        # within the group's timeout while no request comes
+        self._idle_tick_s = multihost.TIMEOUT_S / 4
         self.max_batch = self.buckets[-1]
         self.max_queue = int(max_queue)
 
@@ -314,10 +380,13 @@ class BatchingEngine:
             raise RuntimeError(f"batcher did not drain within {timeout}s; in-flight requests are still running")
 
     # ------------------------------------------------------------ batcher
-    def _pop_first(self, block: bool) -> Optional[ServeTicket]:
+    def _pop_first(self, block: bool, timeout: Optional[float] = None) -> Optional[ServeTicket]:
+        """The oldest request; None when stopped with the queue drained, when
+        not blocking, or after ``timeout`` seconds without one."""
+        deadline = None if timeout is None else time.monotonic() + timeout
         with self._cv:
             while not self._queue:
-                if self._stop or not block:
+                if self._stop or not block or (deadline is not None and time.monotonic() >= deadline):
                     return None
                 self._cv.wait(timeout=0.1)
             return self._queue.popleft()
@@ -350,11 +419,11 @@ class BatchingEngine:
         pad = bucket - len(group)
         seeds = seeds + [seeds[-1]] * pad
         prompts = prompts + [prompts[-1]] * pad
-        kwargs = dict(group[0].knobs)
-        if all(p == prompts[0] for p in prompts):
-            pb = self.pipe.dispatch_batch(seeds, meta_prompt=prompts[0], **kwargs)
-        else:
-            pb = self.pipe.dispatch_batch(seeds, meta_prompts=prompts, **kwargs)
+        # the message rank 0 broadcasts to its followers (with a mesh)
+        msg = {"op": "batch", "seeds": seeds, "prompts": prompts, "knobs": dict(group[0].knobs)}
+        if self.mesh is not None:
+            multihost.broadcast_object(msg)  # the followers make the same call
+        pb = _run_lockstep(self.pipe, msg, self.mesh)
         with self._cv:  # snapshot() and handlers read stats concurrently
             self.stats["batches"] += 1
             self.stats["samples"] += bucket
@@ -364,10 +433,32 @@ class BatchingEngine:
         return pb
 
     def _loop(self) -> None:
+        if self.mesh is None:
+            self._serve()
+            return
+        try:
+            self._serve()
+        except BaseException as e:  # a lockstep broadcast failed: no follower takes batches any more
+            with self._cv:
+                self._stop = True
+                left, self._queue = list(self._queue), deque()
+                self.stats["errors"] += len(left)
+            for t in left:
+                t._error = e
+                t._event.set()
+            raise
+        finally:
+            multihost.broadcast_object({"op": "stop"})
+
+    def _serve(self) -> None:
         while True:
-            first = self._pop_first(block=True)
-            if first is None:  # stopped, queue drained
-                return
+            first = self._pop_first(block=True, timeout=self._idle_tick_s if self.mesh is not None else None)
+            if first is None:
+                with self._cv:
+                    if self._stop and not self._queue:  # stopped, queue drained
+                        return
+                multihost.broadcast_object({"op": "idle"})
+                continue
             group = self._gather(first)
             t0 = time.monotonic()
             try:
@@ -398,6 +489,13 @@ def _device_info(pipe) -> Dict[str, str]:
     dev = pipe.sd.device
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     return {"device": str(dev), "device_name": name}
+
+
+def _health(engine: BatchingEngine) -> Dict[str, Any]:
+    out = {"ok": True, **_device_info(engine.pipe), "model": engine.pipe.sd.config.name}
+    if engine.mesh is not None:
+        out["mesh"] = engine.mesh.shape
+    return out
 
 
 def make_server(engine: BatchingEngine, host: str = "127.0.0.1", port: int = 8100,
@@ -442,7 +540,7 @@ def make_server(engine: BatchingEngine, host: str = "127.0.0.1", port: int = 810
 
         def do_GET(self):
             if self.path == "/healthz":
-                self._send_json(200, {"ok": True, **_device_info(engine.pipe), "model": engine.pipe.sd.config.name})
+                self._send_json(200, _health(engine))
             elif self.path == "/stats":
                 self._send_json(200, engine.snapshot())
             else:
@@ -558,24 +656,34 @@ def main(argv: Optional[List[str]] = None) -> None:
                    help="enable per-request artifact trees (request field save_artifacts)")
     p.add_argument("--buckets", default="1,2,4,8", help="allowed batch sizes, comma-separated")
     p.add_argument("--mesh_shape", type=json.loads, default=None,
-                   help="device mesh over several GPUs: not in the port yet")
+                   help='mesh over the processes of a torchrun launch, one GPU each, e.g. \'{"data": 2}\' or '
+                        '\'{"data": 1, "tensor": 2}\'; default over N > 1 processes: {"data": N}. Rank 0 serves, '
+                        "the others follow each batch. Every bucket must divide by the data axis.")
     p.add_argument("--warmup", action="store_true",
                    help="serve every bucket size once, one prompt and two, before serving")
     args = p.parse_args(argv)
-    if args.mesh_shape:
-        raise NotImplementedError(
-            "--mesh_shape (a server whose batches follow other ranks in lockstep) is not in the PyTorch port yet: "
-            "ROADMAP.md Queue 1 item 7")
 
     import torch
 
     from guided_attention_tpu_torch.models.bundle import StableDiffusion
+    from guided_attention_tpu_torch.parallel.mesh import make_mesh
 
+    multihost.initialize()  # from torchrun's environment; a no-op for one process
+    device = multihost.rank_device(args.device)
+    mesh = None
+    if args.mesh_shape or multihost.process_count() > 1:
+        mesh = make_mesh(args.mesh_shape, device=device)
+    # on every rank, before the model: a follower must not wait for an engine that refused its buckets
+    buckets = _check_buckets(tuple(int(b) for b in args.buckets.split(",")), mesh)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    sd = StableDiffusion.create(args.model, dtype, device=args.device, checkpoint_dir=args.model_path)
+    sd = StableDiffusion.create(args.model, dtype, device=device, checkpoint_dir=args.model_path)
     pipe = GuidedAttentionPipeline(sd)
-    buckets = tuple(int(b) for b in args.buckets.split(","))
-    engine = BatchingEngine(pipe, max_wait_ms=args.max_wait_ms, buckets=buckets, max_queue=args.max_queue)
+    if mesh is not None and not multihost.is_primary():
+        n = follow(pipe, mesh)
+        print(f"rank {multihost.process_index()}: followed {n} batch(es); stopped", flush=True)
+        return
+    engine = BatchingEngine(pipe, max_wait_ms=args.max_wait_ms, buckets=buckets, mesh=mesh,
+                            max_queue=args.max_queue)
     server = None
     try:
         if args.warmup:
@@ -583,8 +691,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         server = make_server(engine, host=args.host, port=args.port, artifact_dir=args.artifact_dir)
         info = _device_info(pipe)
         print(f"guided-attention inference server on http://{args.host}:{server.server_address[1]} "
-              f"(buckets {buckets}, wait {args.max_wait_ms:.0f} ms, {info['device']} {info['device_name']})",
-              flush=True)
+              f"(buckets {buckets}, wait {args.max_wait_ms:.0f} ms, {info['device']} {info['device_name']}"
+              f"{'' if mesh is None else f', mesh {mesh.shape}'})", flush=True)
         server.serve_forever()
     finally:
         if server is not None:

@@ -13,6 +13,14 @@ package's ``models/unet.py``).
   anything (or after the down blocks when nothing is captured) and returns
   ``eps=None``: the guidance eval needs only the maps, and eager PyTorch does
   not drop dead layers the way XLA does for the JAX program.
+* On the mesh's tensor axis (``parallel.mesh.shard_unet`` sets ``tp`` on
+  the attention and feed-forward layers it shards) a layer runs its local
+  heads, or its part of the feed-forward width, Megatron-style: f
+  (``copy_to_tensor``) before the column-sharded projections, g
+  (``reduce_from_tensor``) after the row-sharded one, its replicated bias
+  added once, after g. The maps it returns are the whole layer's
+  (``ops.attention``), so ``collect`` and the guidance see what one process
+  sees.
 
 Public tensors keep the JAX package's layouts: latents and deep features are
 NHWC, maps [B, Nq, K] with queries in row-major (h, w) order. Inside, the
@@ -30,6 +38,7 @@ import torch.nn.functional as F
 
 from guided_attention_tpu_torch.models.layers import GroupNorm, LayerNorm
 from guided_attention_tpu_torch.ops.attention import attention
+from guided_attention_tpu_torch.parallel.tensor import TensorAxis, copy_to_tensor, reduce_from_tensor
 
 CaptureSpec = FrozenSet[Tuple[str, int]]
 EMPTY_CAPTURE: CaptureSpec = frozenset()
@@ -109,7 +118,15 @@ class ResnetBlock2D(nn.Module):
         return x + h
 
 
+def _row_sharded_out(linear: nn.Linear, x: torch.Tensor, tp: TensorAxis) -> torch.Tensor:
+    """A projection whose weight holds this rank's input columns: the
+    group's sum of the partial products (g), then the replicated bias."""
+    return reduce_from_tensor(F.linear(x, linear.weight), tp) + linear.bias
+
+
 class CrossAttention(nn.Module):
+    tp: Optional[TensorAxis] = None  # set by parallel.mesh.shard_unet: this rank's heads of the layer
+
     def __init__(self, query_dim: int, context_dim: int, heads: int, dim_head: int):
         super().__init__()
         inner = heads * dim_head
@@ -120,18 +137,25 @@ class CrossAttention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
 
     def forward(self, x, context=None, capture=False, capture_perhead=False, pww_mask=None, pww_gate=None, use_flash=False):
+        tp = self.tp
+        if tp is not None:
+            x = copy_to_tensor(x, tp)
+            context = None if context is None else copy_to_tensor(context, tp)
         ctx = x if context is None else context
         out, pooled = attention(
             self.to_q(x),
             self.to_k(ctx),
             self.to_v(ctx),
-            self.heads,
+            self.heads if tp is None else self.heads // tp.size,
             capture=capture,
             capture_perhead=capture_perhead,
             pww_mask=pww_mask,
             pww_gate=pww_gate,
             use_flash=use_flash,
+            tp=tp,
         )
+        if tp is not None:
+            return _row_sharded_out(self.to_out[0], out, tp), pooled
         return self.to_out[0](out), pooled
 
 
@@ -141,16 +165,21 @@ class GEGLU(nn.Module):
         self.proj = nn.Linear(dim, inner * 2)
 
     def forward(self, x):
+        # [hidden; gate]: sharded, a rank's proj holds its slice of each half
         h, gate = self.proj(x).chunk(2, dim=-1)
         return h * F.gelu(gate)  # diffusers GEGLU uses exact gelu
 
 
 class FeedForward(nn.Module):
+    tp: Optional[TensorAxis] = None  # set by parallel.mesh.shard_unet: this rank's part of the width
+
     def __init__(self, dim: int):
         super().__init__()
         self.net = nn.ModuleList([GEGLU(dim, dim * 4), nn.Identity(), nn.Linear(dim * 4, dim)])
 
     def forward(self, x):
+        if self.tp is not None:
+            return _row_sharded_out(self.net[2], self.net[0](copy_to_tensor(x, self.tp)), self.tp)
         return self.net[2](self.net[0](x))
 
 

@@ -20,6 +20,13 @@ Routing to the kernels of ``ops/flash_attention.py`` under ``use_flash``:
 K1/K2 only for self-attention without capture or pww, K3 only for captured
 cross-attention without the per-head map or pww; everything else takes the
 plain matmul path.
+
+On the mesh's tensor axis (``tp``) the projections hold this rank's heads,
+and both routes run on them as they are. What spans the heads is made
+whole over the tensor group (``parallel/tensor.py``): the captured head
+mean is the group's sum of (local mean x local heads) over all heads, the
+per-head map is gathered, and the paint-with-words score max is the
+group's max, so every rank holds the maps one process would.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from guided_attention_tpu_torch.ops.flash_attention import cross_attention_with_map, flash_attention
+from guided_attention_tpu_torch.parallel.tensor import TensorAxis, gather_heads, reduce_from_tensor, tensor_amax
 
 
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -51,6 +59,7 @@ def attention(
     pww_mask: Optional[torch.Tensor] = None,
     pww_gate=None,
     use_flash: bool = False,
+    tp: Optional[TensorAxis] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Multi-head attention over [B, N, C] projections.
 
@@ -62,6 +71,9 @@ def attention(
         for S samples of B/S consecutive rows each (or None).
       pww_gate: scalar = step_gate * log(1 + sigma_t) (or None).
       use_flash: allow the kernels (see the module docstring).
+      tp: this rank's place on the tensor axis, whose group holds the other
+        heads: ``heads`` and C count this rank's heads only, the maps
+        returned are every head's.
 
     Returns:
       (out [B, Nq, C] in q.dtype, probs map fp32 or None)
@@ -80,7 +92,7 @@ def attention(
             out, pooled = cross_attention_with_map(
                 split_heads(q, heads), split_heads(k, heads), split_heads(v, heads), scale
             )
-            return merge_heads(out).to(dtype), pooled
+            return merge_heads(out).to(dtype), _whole_mean(pooled, heads, tp)
 
     qh = split_heads(q, heads)
     kh = split_heads(k, heads)
@@ -92,16 +104,29 @@ def attention(
         gate = torch.as_tensor(pww_gate, dtype=torch.float32, device=scores.device)
         mask = pww_mask.float().reshape(-1, 1, 1, nq, k.shape[1])  # [S, 1, 1, Nq, Nk]
         per_sample = scores.reshape(mask.shape[0], -1, *scores.shape[1:])  # [S, B/S, H, Nq, Nk]
-        top = per_sample.amax(dim=(1, 2, 3, 4), keepdim=True)
+        if tp is None:
+            top = per_sample.amax(dim=(1, 2, 3, 4), keepdim=True)
+        else:
+            top = tensor_amax(per_sample, (1, 2, 3, 4), tp)
         scores = (per_sample + mask * (0.4 * top * gate)).reshape(scores.shape)
 
     probs = torch.softmax(scores, dim=-1)
     if capture_perhead:
-        pooled = probs  # [B, H, Nq, Nk] fp32
+        pooled = probs if tp is None else gather_heads(probs, heads * tp.size, tp)  # [B, H, Nq, Nk] fp32
     elif capture:
-        pooled = probs.mean(dim=1)  # [B, Nq, Nk] fp32
+        pooled = _whole_mean(probs.mean(dim=1), heads, tp)  # [B, Nq, Nk] fp32
     else:
         pooled = None
 
     out = torch.matmul(probs.to(dtype), vh)
     return merge_heads(out), pooled
+
+
+def _whole_mean(local_mean: torch.Tensor, heads: int, tp: Optional[TensorAxis]) -> torch.Tensor:
+    """The mean over every rank's heads from this rank's mean over its
+    ``heads``: the group's sum of head sums, g(mean x heads), over all
+    heads; not a mean of the ranks' means, which holds for equal splits
+    only."""
+    if tp is None:
+        return local_mean
+    return reduce_from_tensor(local_mean * heads, tp) / (heads * tp.size)

@@ -6,8 +6,11 @@ for all or one per seed), with the same keyword surface and validation, a
 prepare cache keyed by every option, decode to uint8 on the device, and
 ``PipelineOutput``. The batch entries take a ``mesh``
 (``parallel.make_mesh``): with several processes, one GPU each, every rank
-runs its rows of the batch and holds the whole batch's latents and
-diagnostics afterwards, and the primary the images (``parallel/batch.py``).
+runs its data row's rows of the batch and holds the whole batch's latents
+and diagnostics afterwards, and the primary the images
+(``parallel/batch.py``); on a mesh with a tensor axis the ranks of a data
+row run its rows together, each with its slices of the UNet's projections
+(``parallel.mesh.shard_unet``, cached per mesh).
 
 Seed semantics: a sample's initial latents and every re-noise / eta draw
 come, in loop order, from one ``torch.Generator`` on the model's device
@@ -38,6 +41,7 @@ from guided_attention_tpu_torch.guidance.custom import CustomLossRegistry, defau
 from guided_attention_tpu_torch.guidance.spec import GuidanceSpec, build_guidance_spec, stack_specs
 from guided_attention_tpu_torch.models.bundle import StableDiffusion
 from guided_attention_tpu_torch.parallel import batch as pbatch
+from guided_attention_tpu_torch.parallel.mesh import shard_unet
 from guided_attention_tpu_torch.parallel.multihost import barrier
 from guided_attention_tpu_torch.pipeline import (
     GenStatics,
@@ -299,6 +303,7 @@ class GuidedAttentionPipeline:
         # batcher thread runs a batch (frontends/server.py)
         self._cache_lock = threading.Lock()
         self._registry_version = 0
+        self._sharded: Dict[Any, StableDiffusion] = {}  # the bundle with this rank's UNet slices, per mesh
 
     def register_custom_loss(self, name: str, loss) -> None:
         """(reference run.py:229-232)"""
@@ -458,6 +463,20 @@ class GuidedAttentionPipeline:
         per_out = [(p[1], p[2], p[3]) for p in prepared]
         return per_out, hp, spec, statics, sched, arrays, emb
 
+    def _sd_for(self, mesh) -> StableDiffusion:
+        """The bundle a rank of ``mesh`` runs: ``self.sd``, or on a tensor
+        axis a copy whose UNet holds this rank's slices (made once per mesh;
+        ``self.sd`` is not changed and shares every replicated tensor)."""
+        if mesh is None or mesh.tensor_axis is None:
+            return self.sd
+        key = (mesh, id(self.sd.unet))
+        with self._cache_lock:
+            sd = self._sharded.get(key)
+        if sd is None:
+            sd = dataclasses.replace(self.sd, unet=shard_unet(self.sd.unet, mesh))
+            _cache_put(self._cache_lock, self._sharded, key, sd, 4)
+        return sd
+
     def _latent_shape(self) -> Tuple[int, int, int, int]:
         cfg = self.sd.config
         return (1, cfg.latent_size, cfg.latent_size, cfg.unet.in_channels)
@@ -472,11 +491,19 @@ class GuidedAttentionPipeline:
 
     def _dispatch(self, opts: PrepareOptions, seeds, meta_prompts, latents, noise, decode: bool,
                   trim: bool = False, mesh=None) -> PendingBatch:
+        shard = pbatch.Shard(mesh, len(seeds))
+        # every rank's prepare and rows, or an error on every rank
+        per_out, keep, S, (final, diags, img_u8) = shard.agree(
+            lambda: self._run_rows(shard, opts, seeds, meta_prompts, latents, noise, decode, trim, mesh))
+        final, diags = shard.gather((final, diags))
+        return PendingBatch(shard.gather_images(img_u8), final, diags, per_out, list(seeds), keep, S)
+
+    def _run_rows(self, shard, opts, seeds, meta_prompts, latents, noise, decode, trim, mesh):
+        """``_dispatch``'s work on this rank: prepare, draw and run its rows."""
         per_out, hp, spec, statics, sched, arrays, emb = self._prepare_batch(opts, seeds, meta_prompts)
         dev = self.sd.device
         B = len(seeds)
         shape = self._latent_shape()
-        shard = pbatch.Shard(mesh, B)
         gens, lat0 = self._seeded(seeds[shard.rows])
         if latents is not None:
             lat0 = torch.as_tensor(np.asarray(latents) if not torch.is_tensor(latents) else latents, device=dev).clone()
@@ -491,9 +518,9 @@ class GuidedAttentionPipeline:
             noise = shard.take(noise)
         keep = _trim_plan(statics, hp) if trim else None
         on_device = functools.partial(_apply_trim, keep=keep) if trim else None
-        final, diags, img_u8 = pbatch.generate_batch(shard, self.sd, statics, hp, emb, lat0, spec, sched, arrays,
-                                                     noise, on_device=on_device, decode=decode)
-        return PendingBatch(img_u8, final, diags, per_out, list(seeds), keep, statics.num_steps)
+        rows = pbatch.run_rows(shard, self._sd_for(mesh), statics, hp, emb, lat0, spec, sched, arrays, noise,
+                               on_device=on_device, decode=decode)
+        return per_out, keep, statics.num_steps, rows
 
     def dispatch_batch(
         self,
@@ -551,13 +578,18 @@ class GuidedAttentionPipeline:
 
         ``mesh`` (``parallel.make_mesh``) splits the batch over the data
         axis of the process group, one GPU per process; every process makes
-        this same call. Each runs its rows (B must divide evenly) and
-        decodes them, and the call returns once every rank holds the whole
-        batch's latents and diagnostics (gathered over gloo) and the
-        primary its images; ``images`` is None on the other ranks. Sample b
-        is bit for bit the one-process batch of its rank's rows. With one
-        process, ``mesh`` changes nothing. The mesh's ``tensor`` axis is
-        not in the port (``make_mesh`` refuses it)."""
+        this same call. The ranks of a data row run its rows (B must divide
+        evenly by the data axis), over the tensor axis when there is one
+        (each rank its slices of the UNet's projections, the partial
+        results summed over the row's tensor group), and decode them; the
+        call returns once every rank holds the whole batch's latents and
+        diagnostics (gathered over gloo) and the primary its images;
+        ``images`` is None on the other ranks. A rank whose prepare or rows
+        raise makes the call raise ``parallel.batch.BatchFailed`` on every
+        rank. Over the data axis alone, sample b is bit for bit the
+        one-process batch of its rank's rows; over a tensor axis it agrees
+        with it to the rounding of the sums. With one process, ``mesh``
+        changes nothing."""
         opts = PrepareOptions.from_locals(locals())
         return self._dispatch(opts, list(seeds), meta_prompts, latents, noise, decode, trim_heavy_diags, mesh)
 
@@ -600,8 +632,8 @@ class GuidedAttentionPipeline:
             gens, latents = self._seeded(seeds[shard.rows])
         for a, b in ckpt.segment_bounds(start, S, checkpoint_every) if start < S else ():
             noise = [GeneratorNoise(g, shape, dev) for g in gens]
-            whole, seg, _ = pbatch.generate_batch(shard, self.sd, statics, hp, emb, latents, spec, sched, arrays,
-                                                  noise, start=a, stop=b)
+            whole, seg, _ = pbatch.generate_batch(shard, self._sd_for(mesh), statics, hp, emb, latents, spec, sched,
+                                                  arrays, noise, start=a, stop=b)
             states = shard.gather(torch.stack([g.get_state() for g in gens]))
             ckpt.save_state(state_dir, identity, b, whole, seg, seg_start=a, generators=list(states))
             latents = shard.take(whole).to(dev)

@@ -243,14 +243,18 @@ def test_profile_dir_writes_a_chrome_trace(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--mesh_shape", '{"data": 1, "tensor": 2}'],
-    ["--mesh_shape", '{"tensor": 2}', "--num_processes", "2"],  # refused before the process group starts
-    ["--checkpoint_every", "5", "--mesh_shape", '{"tensor": 2}'],  # resumable runs are in; the tensor axis not
+    ["--mesh_shape", '{"tensor": 2}', "--interactive", "true"],
+    ["--checkpoint_every", "5", "--mesh_shape", '{"tensor": 2}'],
 ])
 def test_unsupported_options_raise(flag, tmp_path):
+    """The tensor axis runs (the two-rank launch of
+    ``tests/test_torch_port_parallel.py``); a mesh larger than the process
+    group is refused, by the sweep and the web UI alike, before any
+    generation."""
     argv = ["--meta_prompt", META, "--model", "micro", "--device", "cpu", "--output_path", str(tmp_path)] + flag
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 7"):
+    with pytest.raises(ValueError, match="needs 2 processes; the process group has 1"):
         tcli.main(argv)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs 2 processes; the process group has 1"):
         tcli.execute(tcli.parse_args(argv), pipe=None)
 
 

@@ -1,7 +1,7 @@
-"""Data parallelism in the port (``parallel/``, ``mesh=`` on the batch
-entries, the CLI over several processes) on the CPU: two gloo ranks, micro
-in float32, the JAX package's weights (``params_from_jax``, through a native
-checkpoint that the ranks load).
+"""Data and tensor parallelism in the port (``parallel/``, ``mesh=`` on the
+batch entries, the CLI over several processes, the served mesh) on the CPU:
+two gloo ranks, micro in float32, the JAX package's weights
+(``params_from_jax``, through a native checkpoint that the ranks load).
 
 One launch of two child processes (one torch thread each, a ``file://``
 store in ``tmp_path``, so no port can collide) runs every multi-process case
@@ -21,10 +21,21 @@ and saves each rank's outputs; the tests here read them:
   tree is a one-process ``--batch_size 1`` run's, PNG for PNG;
 * standard SD from JAX's initial latents against JAX's ``generate_batch``
   over a two-device mesh (1e-4, as ``tests/test_parallel.py:42``);
-* ``to_host`` of bfloat16, bool, float16 and int32 leaves, bit for bit.
+* ``to_host`` of bfloat16, bool, float16 and int32 leaves, bit for bit;
+* the tensor axis, ``{"data": 1, "tensor": 2}``: standard SD against the
+  one-process run and against JAX's ``generate_batch`` over the same mesh
+  (1e-4), a guided 2-step run against the data-only run (5e-3, as
+  ``tests/test_parallel.py:75-95``), and one guidance eval's loss and
+  latent gradient (plain, deep-latent, paint-with-words with a gate),
+  equal on both ranks and within 1e-5 relative of one process, and the
+  maps a forward captures (head means, per-head);
+* the served mesh: a ``BatchingEngine`` over ``{"data": 2}`` on rank 0,
+  ``server.follow`` on rank 1; the served PNGs bitwise each rank's
+  one-process row, and a follower fault failing rank 0's ticket in time.
 
-The mesh, the slicing, the refusals and the tensor-parallel rules are
-checked in this process.
+The mesh, the slicing (``shard_unet``, GEGLU's halves, the bias after the
+sum, replicated layers), Megatron's f and g on a group of one, the
+refusals and the tensor-parallel rules are checked in this process.
 """
 import dataclasses
 import os
@@ -37,6 +48,7 @@ import numpy as np
 import pytest
 import jax
 import torch
+from hypothesis import given, settings, strategies as st
 
 from guided_attention_tpu.parallel import mesh as jmesh
 from guided_attention_tpu.parallel import multihost as jmultihost
@@ -44,15 +56,17 @@ from guided_attention_tpu.runner import GuidedAttentionPipeline as JPipe
 
 from guided_attention_tpu_torch.frontends import cli as tcli
 from guided_attention_tpu_torch.models import io as tio
+from guided_attention_tpu_torch.models import unet as tunet
 from guided_attention_tpu_torch.models.bundle import StableDiffusion as TSD
 from guided_attention_tpu_torch.models.convert import params_from_jax
 from guided_attention_tpu_torch.parallel import mesh as tmesh
 from guided_attention_tpu_torch.parallel import multihost
+from guided_attention_tpu_torch.parallel import tensor as ttensor
 from guided_attention_tpu_torch.pipeline import StepDiag
 from guided_attention_tpu_torch.runner import GuidedAttentionPipeline as TPipe
 
 from torch_port_helpers import jax_draws, jax_micro_bundle, jax_param_shapes
-from torch_port_parallel_child import SEEDS, STANDARD, cli_argv
+from torch_port_parallel_child import EVAL_CASES, FAIL_TIMEOUT_S, SEEDS, STANDARD, TP_SEEDS, cli_argv
 
 REPO = str(Path(__file__).resolve().parent.parent)
 CHILD = os.path.join(REPO, "tests", "torch_port_parallel_child.py")
@@ -110,13 +124,14 @@ def run(tmp_path_factory):
     try:
         # meanwhile, the references that need JAX or a process outside the group
         jax_std = jp.generate_batch(SEEDS, mesh=jmesh.make_mesh({"data": 2}), **STANDARD)
+        jax_tp = jp.generate_batch(TP_SEEDS, mesh=jmesh.make_mesh({"data": 1, "tensor": 2}), **STANDARD)
         tcli.main(cli_argv(root / "ckpt", root / "single", "--batch_size", "1"))
     finally:
         _wait(procs, logs, CHILD_TIMEOUT_S)
         for f in files:
             f.close()
     ranks = [dict(np.load(root / f"out{r}.npz")) for r in (0, 1)]
-    return dict(root=root, ranks=ranks, jax_std=jax_std)
+    return dict(root=root, ranks=ranks, jax_std=jax_std, jax_tp=jax_tp, logs=[log.read_text() for log in logs])
 
 
 def test_guided_batch_is_whole_on_both_ranks_and_each_rank_runs_its_rows(run):
@@ -194,6 +209,65 @@ def test_to_host_gathers_every_dtype_bit_for_bit(run):
         np.testing.assert_array_equal(res["to_host_bool"].ravel(), [True, True, False, True])
 
 
+def test_tensor_axis_standard_matches_one_process_and_jax(run):
+    r0, r1 = run["ranks"]
+    assert str(r0["tp_backend"]) == "gloo" and "tensor group [0, 1] on gloo (ranks share cpu)" in run["logs"][0]
+    got = r0["tp_standard_latents"]
+    np.testing.assert_array_equal(got, r1["tp_standard_latents"])
+    np.testing.assert_allclose(got, r0["one_standard_latents"], atol=1e-4, rtol=0)
+    want = np.stack([np.asarray(o.latents, np.float32) for o in run["jax_tp"]]).reshape(got.shape)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+def test_tensor_axis_guided_matches_the_data_only_run(run):
+    r0, r1 = run["ranks"]
+    np.testing.assert_array_equal(r0["tp_guided_latents"], r1["tp_guided_latents"])
+    assert (r0["tp_guided_diag_refine_iters"][:, 0] > 0).all()
+    np.testing.assert_allclose(r0["tp_guided_latents"], r0["guided_ref_latents"], atol=5e-3, rtol=0)
+    assert r0["tp_guided_has_images"].all() and not r1["tp_guided_has_images"].any()
+
+
+@pytest.mark.parametrize("case", list(EVAL_CASES))
+def test_tensor_axis_eval_loss_and_gradient(run, case):
+    """Equal on both ranks (the gradient reaching f is whole on each), and
+    one process's within 1e-5 relative: plain, deep-latent (the gradient of
+    the bottleneck features), and paint-with-words with a nonzero gate (a
+    gradient through the score max over both ranks' heads)."""
+    r0, r1 = run["ranks"]
+    loss, grad = r0[f"eval_{case}_tp_loss"], r0[f"eval_{case}_tp_grad"]
+    assert loss == r1[f"eval_{case}_tp_loss"]
+    np.testing.assert_array_equal(grad, r1[f"eval_{case}_tp_grad"])
+    want_loss, want_grad = r0[f"eval_{case}_one_loss"], r0[f"eval_{case}_one_grad"]
+    assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
+    assert np.abs(grad - want_grad).max() <= 1e-5 * np.abs(want_grad).max()
+    assert np.abs(want_grad).max() > 0
+
+
+def test_tensor_axis_maps_are_the_whole_layers(run):
+    """The head means (cross and self) and the per-head cross maps a forward
+    captures are every head's, equal on both ranks and one process's."""
+    r0, r1 = run["ranks"]
+    keys = [k[len("maps_tp_"):] for k in r0 if k.startswith("maps_tp_")]
+    assert len(keys) == 6 and r0["maps_tp_down_cross_perhead"].shape[2] == 2  # [layers, B, heads, Nq, K]
+    for key in keys:
+        np.testing.assert_array_equal(r0[f"maps_tp_{key}"], r1[f"maps_tp_{key}"], err_msg=key)
+        np.testing.assert_allclose(r0[f"maps_tp_{key}"], r0[f"maps_one_{key}"], atol=1e-6, rtol=0, err_msg=key)
+
+
+def test_served_mesh_is_each_ranks_one_process_row(run):
+    r0, r1 = run["ranks"]
+    for b, res in enumerate((r0, r1)):
+        np.testing.assert_array_equal(r0["served_images"][b], res["serve_ref_images"])
+        np.testing.assert_array_equal(r0["served_latents"][b], res["serve_ref_latents"])
+
+
+def test_a_failed_follower_fails_the_ticket_in_time(run):
+    r0, r1 = run["ranks"]
+    assert str(r0["fail_error"]) == "rank 1: RuntimeError: injected follower fault"
+    assert float(r0["fail_s"]) < FAIL_TIMEOUT_S and int(r0["served_stats_errors"]) == 1
+    assert int(r1["followed"]) == 2  # the first batch and the failed one; the stop ended it
+
+
 # ---- one process -------------------------------------------------------
 def test_make_mesh_defaults_and_errors():
     m = tmesh.make_mesh()
@@ -205,9 +279,14 @@ def test_make_mesh_defaults_and_errors():
         tmesh.make_mesh({"pipeline": 1})
     with pytest.raises(ValueError, match=">= 1"):
         tmesh.make_mesh({"data": 0})
+    # the tensor axis is in; a mesh larger than the process group is not
     for shape in ({"data": 1, "tensor": 2}, {"tensor": 4}):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 7"):
+        with pytest.raises(ValueError, match="needs .* processes"):
             tmesh.make_mesh(shape)
+    m = tmesh.Mesh(("data", "tensor"), (2, 2), rank=3)
+    assert (m.data_index, m.tensor_index, m.tensor_rows, m.row_sources) == (1, 1, [[0, 1], [2, 3]], [0, 2])
+    m = tmesh.Mesh(("tensor", "data"), (2, 3), rank=4)
+    assert (m.data_index, m.tensor_index, m.tensor_rows, m.row_sources) == (1, 1, [[0, 3], [1, 4], [2, 5]], [0, 1, 2])
 
 
 def test_local_batch_slice_and_helpers_at_one_process():
@@ -271,3 +350,124 @@ def test_tp_rules_select_the_jax_packages_parameters():
             got[to_jax[name]] = spec[::-1] if len(spec) == 2 else spec
     assert got == want
     assert len(got) >= 6
+
+
+# ---- the tensor axis's slicing and collectives, in one process -----------
+def _tp_unets(unet, t):
+    return [tmesh.shard_unet(unet, tmesh.Mesh(("tensor",), (t,), rank=r)) for r in range(t)]
+
+
+def _simulate_group(modules, x, monkeypatch, **kw):
+    """Each rank's module on ``x``, with g (``reduce_from_tensor``) made the
+    sum of every rank's input to it, as a group of ``len(modules)`` ranks
+    computes it; returns rank 0's output."""
+    seen = []
+    monkeypatch.setattr(tunet, "reduce_from_tensor", lambda y, tp: seen.append(y) or y)
+    for m in modules:
+        m(x, **kw)
+    total = sum(seen)
+    monkeypatch.setattr(tunet, "reduce_from_tensor", lambda y, tp: total)
+    return modules[0](x, **kw)
+
+
+@pytest.mark.parametrize("t", [2, 4])
+def test_shard_unet_slices_geglu_by_halves(micro_pipe, t):
+    """Each rank takes its slice of the hidden half and of the gate half:
+    the ranks' h * gelu(gate), side by side, are the whole layer's."""
+    unet = micro_pipe.sd.unet
+    name = "down_blocks.0.attentions.0.transformer_blocks.0.ff.net.0"
+    whole = unet.get_submodule(name)
+    x = torch.randn(2, 5, whole.proj.weight.shape[1], generator=torch.Generator().manual_seed(0))
+    parts = [u.get_submodule(name)(x) for u in _tp_unets(unet, t)]
+    torch.testing.assert_close(torch.cat(parts, dim=-1), whole(x), rtol=1e-6, atol=1e-6)
+    # a contiguous slice of the 2 x inner rows would give rank 0 no gate
+    inner = whole.proj.weight.shape[0] // 2
+    r0 = _tp_unets(unet, t)[0].get_submodule(name).proj.weight
+    torch.testing.assert_close(r0[inner // t:], whole.proj.weight[inner: inner + inner // t], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("layer", ["attn1", "attn2", "ff"])
+def test_the_replicated_bias_is_added_once_after_the_sum(micro_pipe, monkeypatch, layer):
+    unet = micro_pipe.sd.unet
+    name = f"up_blocks.1.attentions.0.transformer_blocks.0.{layer}"
+    whole = unet.get_submodule(name)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 16, 64, generator=g)
+    kw = {} if layer != "attn2" else {"context": torch.randn(2, 77, 64, generator=g)}
+    mods = [u.get_submodule(name) for u in _tp_unets(unet, 2)]
+    bias = mods[0].to_out[0].bias if layer != "ff" else mods[0].net[2].bias
+    assert bias is (whole.to_out[0].bias if layer != "ff" else whole.net[2].bias)  # shared, whole
+    want = whole(x, **kw)
+    got = _simulate_group(mods, x, monkeypatch, **kw)
+    if layer != "ff":
+        want, got = want[0], got[0]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_a_layer_the_axis_does_not_divide_stays_replicated(micro_pipe, capsys):
+    """micro has 2 heads and a feed-forward width of 4 x dim: at t = 3 no
+    layer divides, and each shares the whole layer's tensors; at t = 2 every
+    layer is sharded and the convolutions stay shared."""
+    unet = micro_pipe.sd.unet
+    rep = tmesh.shard_unet(unet, tmesh.Mesh(("tensor",), (3,), rank=0))
+    assert "30 layer(s), which stay replicated" in capsys.readouterr().err
+    for (n, p), (n2, p2) in zip(unet.named_parameters(), rep.named_parameters()):
+        assert n == n2 and p is p2
+    assert not any(getattr(m, "tp", None) for m in rep.modules())
+    two = tmesh.shard_unet(unet, tmesh.Mesh(("tensor",), (2,), rank=1))
+    assert two.conv_in.weight is unet.conv_in.weight and two.down_blocks[0].resnets[0].conv1.weight is \
+        unet.down_blocks[0].resnets[0].conv1.weight
+    assert sum(isinstance(m, tunet.CrossAttention) and m.tp is not None for m in two.modules()) == 20
+    assert unet.down_blocks[0].attentions[0].transformer_blocks[0].attn1.tp is None  # the original is untouched
+    assert tmesh.shard_unet(unet, tmesh.Mesh(("data",), (1,))) is unet
+
+
+@pytest.fixture
+def group_of_one(tmp_path):
+    torch.distributed.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", world_size=1, rank=0)
+    try:
+        yield ttensor.TensorAxis(torch.distributed.new_group([0]), 1, 0)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_f_and_g_backward_on_a_group_of_one(group_of_one):
+    """f: identity forward, the group's sum backward; g: the sum forward,
+    identity backward; the score max: amax's value and its gradient, split
+    among ties; the per-head gather: every head in place."""
+    axis = group_of_one
+    ttensor.reset_collectives()
+    x = torch.tensor([[1.0, 3.0, 3.0], [2.0, -1.0, 0.5]], requires_grad=True)
+    y = ttensor.copy_to_tensor(x, axis)
+    (gx,) = torch.autograd.grad((y * torch.arange(6.0).reshape(2, 3)).sum(), x)
+    torch.testing.assert_close(gx, torch.arange(6.0).reshape(2, 3), rtol=0, atol=0)
+    (gx,) = torch.autograd.grad((ttensor.reduce_from_tensor(x, axis) * 2).sum(), x)
+    torch.testing.assert_close(gx, torch.full((2, 3), 2.0), rtol=0, atol=0)
+    top = ttensor.tensor_amax(x, (1,), axis)
+    want = x.amax(dim=1, keepdim=True)
+    torch.testing.assert_close(top, want, rtol=0, atol=0)
+    w = torch.tensor([[5.0], [7.0]])
+    (got,) = torch.autograd.grad((top * w).sum(), x)
+    (ref,) = torch.autograd.grad((want * w).sum(), x)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)  # [[0, 2.5, 2.5], [7, 0, 0]]
+    local = torch.randn(2, 3, 4, 5)
+    torch.testing.assert_close(ttensor.gather_heads(local, 3, axis), local, rtol=0, atol=0)
+    assert ttensor.COLLECTIVES["all_reduce"] == 6 and ttensor.COLLECTIVES["bytes"] > 0
+    assert multihost.process_count() == 1
+
+
+@settings(max_examples=40, deadline=None)
+@given(t=st.sampled_from([1, 2, 4, 8]), per=st.integers(1, 5), halves=st.sampled_from([1, 2]),
+       cols=st.integers(1, 4), dim=st.sampled_from([0, 1]))
+def test_the_ranks_slices_tile_the_whole_weight(t, per, halves, cols, dim):
+    """Concatenating the ranks' slices, half by half, rebuilds the weight;
+    ``TensorAxis.local`` tiles the features in rank order."""
+    n = t * per * halves
+    w = torch.arange(float(n * cols)).reshape(n, cols)
+    w = w if dim == 0 else w.T.contiguous()
+    slices = [tmesh._sharded_copy(w, dim, ttensor.TensorAxis(None, t, r), halves) for r in range(t)]
+    assert all(s.shape[dim] == n // t for s in slices)
+    rebuilt = [torch.cat([s.chunk(halves, dim=dim)[h] for s in slices], dim=dim) for h in range(halves)]
+    torch.testing.assert_close(torch.cat(rebuilt, dim=dim), w, rtol=0, atol=0)
+    assert [ttensor.TensorAxis(None, t, r).local(t * per) for r in range(t)] == \
+        [slice(r * per, (r + 1) * per) for r in range(t)]

@@ -218,10 +218,23 @@ def test_warmup_serves_every_bucket_with_one_prompt_and_two():
 
 
 def test_engine_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 7"):
-        tserver.BatchingEngine(FakePipe(), mesh=object(), _start_thread=False)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 7"):
-        tserver.main(["--mesh_shape", '{"data": 2}'])
+    """A mesh is served (the two-rank launch of
+    ``tests/test_torch_port_parallel.py``); refused are buckets the data
+    axis does not divide (the JAX engine's check), an engine off rank 0,
+    and a mesh larger than the process group."""
+    from guided_attention_tpu_torch.parallel import multihost
+    from guided_attention_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError, match=r"buckets \[1, 3\] not divisible by the mesh data axis \(2\)"):
+        tserver.BatchingEngine(FakePipe(), buckets=(1, 2, 3, 4), mesh=Mesh(("data",), (2,)), _start_thread=False)
+    eng = tserver.BatchingEngine(FakePipe(), buckets=(2, 4), mesh=Mesh(("data", "tensor"), (2, 1)),
+                                 _start_thread=False)
+    assert eng.mesh.shape == {"data": 2, "tensor": 1}
+    with pytest.raises(RuntimeError, match="follow"):
+        tserver.follow(FakePipe(), Mesh(("data",), (1,)))  # rank 0 serves
+    assert multihost.process_count() == 1
+    with pytest.raises(ValueError, match="needs 2 processes; the process group has 1"):
+        tserver.main(["--mesh_shape", '{"data": 2}', "--device", "cpu", "--model", "micro"])
 
 
 # ------------------------------------------------------------- delivery

@@ -1,5 +1,9 @@
 """One rank of ``tests/test_torch_port_parallel.py``'s two-process run, and
-the inputs both sides share. It imports the port only (no JAX).
+the inputs both sides share. It imports the port only (no JAX). Both ranks
+run the data-parallel cases over ``{"data": 2}``, then the tensor axis over
+``{"data": 1, "tensor": 2}``, then serve: rank 0 runs a ``BatchingEngine``
+over ``{"data": 2}`` and rank 1 follows it, failing on purpose in its
+second batch.
 
     python tests/torch_port_parallel_child.py RANK ROOT
 
@@ -11,6 +15,7 @@ outputs to ``ROOT/out<RANK>.npz``.
 import dataclasses
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -22,6 +27,15 @@ RESUME = dict(meta_prompt="a [dog:.2,.3] x", num_inference_steps=3, thresholds={
 STANDARD = dict(meta_prompt="a dog", run_standard_sd=True, num_inference_steps=2)
 SEEDS = [1, 2, 3, 4]
 CLI_META = "a [robot:.6,.3,.4,.55] and a [vase:0,.3,.4,.55]"
+TP_SEEDS = SEEDS[:2]  # rank 0's rows of the data-parallel batch: its guided_ref is their one-process run
+# one guidance eval each: plain, deep-latent, and paint-with-words with a
+# nonzero gate (a gradient through the score max)
+EVAL_META = "a [dog:.1,.1,.5,.5] and a [cat:.5,.4,.4,.5]"
+EVAL_CASES = {"plain": ({}, 0.0), "deep": ({"optimize_deep_latent": True}, 0.0),
+              "pww": ({"paint_with_words_stop": 5, "paint_with_words_weight": 2.0}, 0.7)}
+SERVE_SEEDS = (11, 12)  # two requests: one bucket-2 batch, a row per rank
+SERVE_KNOBS = dict(num_inference_steps=2, thresholds={0: 0.5})
+FAIL_TIMEOUT_S = 60.0  # the failed follower's ticket must fail within this
 
 
 def cli_argv(ckpt, out, *extra):
@@ -51,6 +65,77 @@ class Preempted(Exception):
 def die_after_first(done: int, total: int) -> None:
     if done >= 1:
         raise Preempted
+
+
+def eval_case(pipe, sd, case: str):
+    """(loss, latent gradient) of one guidance eval of ``EVAL_META`` on the
+    bundle ``sd`` (the pipeline's, or a rank's tensor-sharded copy)."""
+    from guided_attention_tpu_torch.config import HyperParams
+    from guided_attention_tpu_torch.guidance.spec import stack_specs
+    from guided_attention_tpu_torch.models.unet import EMPTY_CAPTURE
+    from guided_attention_tpu_torch.pipeline import _Loop
+    from guided_attention_tpu_torch.runner import PrepareOptions
+
+    fields, gate = EVAL_CASES[case]
+    hp, _p, _a, spec, statics, sched, arrays, emb = pipe._prepare(
+        PrepareOptions(meta_prompt=EVAL_META, hp=HyperParams(**fields)))
+    lat = torch.randn((1, 16, 16, 4), generator=torch.Generator().manual_seed(5))
+    t = int(sched.timesteps[0])
+    loop = _Loop(sd, statics, hp, emb[None], stack_specs([spec]), sched, arrays, None, ("up", "down", "mid"))
+    var = lat
+    if loop.deep_mode:
+        with torch.no_grad():
+            var = loop.unet_eps(lat, t, [0], loop.cond, EMPTY_CAPTURE, gate, truncate=True)[1]["deep"]
+    loss, _aux, grad = loop.guidance_eval(lat, [0], t, gate, var)
+    return np.float64(loss), grad.numpy()
+
+
+def serve(pipe, mesh, rank: int) -> dict:
+    """Rank 0: an engine over ``mesh`` serves two requests, then one whose
+    batch fails on rank 1; rank 1 follows. Each rank also runs the
+    one-process batch of its row."""
+    from guided_attention_tpu_torch.frontends import server
+    from guided_attention_tpu_torch.parallel.batch import BatchFailed
+
+    res = {}
+    ref = pipe.generate_batch([SERVE_SEEDS[rank]], meta_prompt=GUIDED["meta_prompt"], capture_diagnostics=False,
+                              **SERVE_KNOBS)
+    res["serve_ref_images"], res["serve_ref_latents"] = ref[0].images_u8, ref[0].latents
+    if rank == 0:
+        engine = server.BatchingEngine(pipe, max_wait_ms=0.0, buckets=(2, 4), mesh=mesh, _start_thread=False)
+        tickets = [engine.submit(GUIDED["meta_prompt"], seed=s, **SERVE_KNOBS) for s in SERVE_SEEDS]
+        engine._thread.start()
+        outs = [t.result(timeout=120) for t in tickets]
+        res["served_images"] = np.stack([o.images_u8 for o in outs])
+        res["served_latents"] = np.stack([o.latents for o in outs])
+        t0 = time.monotonic()
+        ticket = engine.submit(GUIDED["meta_prompt"], seed=7, **SERVE_KNOBS)
+        try:
+            ticket.result(timeout=FAIL_TIMEOUT_S)
+            res["fail_error"] = np.array("no error")
+        except BatchFailed as e:
+            res["fail_error"] = np.array(str(e))
+        except TimeoutError:
+            res["fail_error"] = np.array("timeout")
+        res["fail_s"] = np.array(time.monotonic() - t0)
+        res["served_stats_errors"] = np.array(engine.snapshot()["errors"])
+        engine.close(timeout=60)
+    else:
+        run_rows = pipe._run_rows
+        calls = []
+
+        def fails_second(*a, **k):
+            calls.append(1)
+            if len(calls) == 2:
+                raise RuntimeError("injected follower fault")
+            return run_rows(*a, **k)
+
+        pipe._run_rows = fails_second
+        try:
+            res["followed"] = np.array(server.follow(pipe, mesh))
+        finally:
+            del pipe._run_rows
+    return res
 
 
 def main(rank: int, root: str) -> None:
@@ -98,6 +183,30 @@ def main(rank: int, root: str) -> None:
     lat = np.load(os.path.join(root, "jax_latents.npy"))
     res.update(outputs_dict("standard", pipe.generate_batch(SEEDS, mesh=mesh, latents=lat, decode=False,
                                                             **STANDARD)))
+
+    # ---- the tensor axis: both ranks run every row, each its heads
+    tp = make_mesh({"data": 1, "tensor": 2}, device="cpu")
+    res["tp_backend"] = np.array(tp.tensor_backend)
+    res.update(outputs_dict("tp_standard", pipe.generate_batch(TP_SEEDS, mesh=tp, latents=lat[:2], decode=False,
+                                                               **STANDARD)))
+    res.update(outputs_dict("one_standard", pipe.generate_batch(TP_SEEDS, latents=lat[:2], decode=False,
+                                                                **STANDARD)))
+    res.update(outputs_dict("tp_guided", pipe.generate_batch(TP_SEEDS, mesh=tp, **GUIDED)))
+    for case in EVAL_CASES:
+        res[f"eval_{case}_tp_loss"], res[f"eval_{case}_tp_grad"] = eval_case(pipe, pipe._sd_for(tp), case)
+        res[f"eval_{case}_one_loss"], res[f"eval_{case}_one_grad"] = eval_case(pipe, pipe.sd, case)
+    # the maps a forward captures: head means (cross and self) and per-head
+    lat = torch.randn((2, 16, 16, 4), generator=torch.Generator().manual_seed(3))
+    ctx = pipe.sd.encode_prompt(EVAL_META).expand(2, -1, -1).contiguous()
+    for tag, unet in (("tp", pipe._sd_for(tp).unet), ("one", pipe.sd.unet)):
+        # a layer returns its per-head map in place of the head mean: two forwards
+        for capture, kind in (({("cross", 8), ("self", 8)}, ("cross", "self")), ({("cross_perhead", 8)}, ("cross_perhead",))):
+            with torch.no_grad():
+                maps = unet(lat, 500, ctx, capture=frozenset(capture))[1]["maps"]
+            for key in (f"{place}_{k}" for place in ("down", "up") for k in kind):
+                res[f"maps_{tag}_{key}"] = torch.stack(maps[key]).numpy()
+
+    res.update(serve(pipe, mesh, rank))
 
     g = torch.Generator().manual_seed(rank)
     tree = {"bf16": torch.randn(2, 3, generator=g).to(torch.bfloat16),

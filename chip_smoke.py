@@ -5,8 +5,9 @@
 
 ``--phases`` runs the phases it names, with the card and the build (1, 2)
 and the phases they read from (9 and 12 read phase 8's tree, 10 reads
-phase 6's batch, 13 reads phase 5's image); without it, every phase.
-The kernels line needs phase 3. Phases:
+phase 6's batch, 13 reads phase 5's image, 14 runs on phase 5's warm
+pipeline); without it, every phase. The kernels line needs phase 3.
+Phases:
   1. the card's name and power limit, torch/CUDA versions, TF32 settings;
   2. build the CUDA kernels from csrc/ (nvcc, sm_90a);
   3. hold each kernel against its plain PyTorch version on the card at the
@@ -128,7 +129,8 @@ The kernels line needs phase 3. Phases:
  13. the tensor axis and the served mesh, sd15 at full width: (d) in this
      process, K1-K3 against their plain versions at the shapes a rank of
      {"data": 1, "tensor": 2} launches (4 of 8 heads: K1 [8, 4096, 40], K2
-     [4, 4096, 40], K3 q [1, 4, 256, 160], a cluster of 4 blocks), timed;
+     [4, 4096, 40], K3 q [1, 4, 256, 160], a cluster of 4 blocks), timed,
+     K1 beside SDPA's forward and K2 beside SDPA's graph backward;
      then one torchrun launch of two ranks (``--tensor-parallel-rank DIR``;
      on one card they share it and the tensor group is gloo, with two cards
      or more each has its own and the group is NCCL; the backend is
@@ -143,7 +145,22 @@ The kernels line needs phase 3. Phases:
      bucket-4 batch), rank 1 follows; every PNG byte for byte its rank's
      one-process ``generate_batch`` of its two rows; ``/healthz`` names the
      mesh; the server's stop ends the follower and both ranks exit 0;
- 14. a {"kernels": [...]} line, then the last line
+ 14. the measuring tools on phase 5's pipeline, sd15 bf16 at full width:
+     (a) ``perf_unet``'s chain of 20 batch-2 CFG forwards and (b) of 20
+     batch-1 guidance evals, each replayed from one CUDA graph and issued
+     eagerly in turns: the graph's last output against the eager chain's
+     (bitwise equality printed, gated at phase 6's float32 limits), K1 in
+     the CFG graph and K1-K3 in the eval graph (the kernels of a profiled
+     replay), ms per forward and per eval both ways and their ratio; (c)
+     ``profile.run`` on the main path's call: its join of every kernel to
+     its module and op must close in every family (within 0.5% in time,
+     exactly in launches), the top 10 (module, op) keys of copy/cast and of
+     other printed, the table in ``chiprun_out/profile_ops.json``; (d)
+     ``perf_host_tail.measure`` (2 reps): the walls, floors and the split
+     of one call into the host's blocked and issuing seconds. Readings: no
+     time is gated;
+ 15. a {"kernels": [...]} line (phase 14 adds the launches captured into
+     its graphs, which a replay does not count), then the last line
      {"ok": true, "device": {...}}.
 
 Any failed check or exception exits non-zero before the last line. Weights
@@ -1944,8 +1961,11 @@ def _tp_kernel_checks(results: dict) -> dict:
     shapes a rank of ``TP_MESH`` launches on sd15 (4 of 8 heads): K1 [8,
     4096, 40] (CFG, two rows), K2 [4, 4096, 40] (the eval), K3 q [1, 4, 256,
     160] with 77 keys (a cluster of 4 blocks), phase 3's limits; timed as in
-    phase 3. Returns each kernel's row for the kernels line."""
+    phase 3, K1 beside SDPA's forward and K2 beside SDPA's backward replayed
+    from a CUDA graph (phase 3's yardsticks). Returns each kernel's row for
+    the kernels line."""
     import torch
+    import torch.nn.functional as F
 
     from guided_attention_tpu_torch import perf_attn_kernel as pak
     from guided_attention_tpu_torch.ops import flash_attention as fa
@@ -1967,9 +1987,12 @@ def _tp_kernel_checks(results: dict) -> dict:
     tol = check_close(f"K1 out [8,{n},{d}] (tp2 CFG)", o, ref, results)
     check(f"K1 lse [8,{n},{d}] (tp2 CFG)", max_err(lse, lse_ref), LSE_TOL, results)
     b_ms, b_by = bound_ms(pak.fwd_flops(8, n, d), 4 * 8 * n * d * 2 + 8 * n * 4, exps=8 * n * n)
+    q4, k4, v4 = (t.reshape(1, 8, n, d) for t in (q, k, v))
     rows["flash_self_fwd"] = {"shape": [8, n, d], "max_abs_err": max_err(o, ref), "tol": tol, "bound_ms": b_ms,
-                              "bound_by": b_by, **alternating_ms({"ms": lambda: fa.flash_self_fwd(q, k, v, scale),
-                                                                  "plain_ms": lambda: fa.flash_self_plain(q, k, v, scale)})}
+                              "bound_by": b_by, **alternating_ms({
+                                  "ms": lambda: fa.flash_self_fwd(q, k, v, scale),
+                                  "plain_ms": lambda: fa.flash_self_plain(q, k, v, scale),
+                                  "library_ms": lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)})}
     q, k, v, do = randn(4, n, d), randn(4, n, d), randn(4, n, d), randn(4, n, d)
     o, lse = fa.flash_self_fwd(q, k, v, scale)
     got = fa.flash_self_bwd(q, k, v, o, do, lse, scale)
@@ -1978,10 +2001,13 @@ def _tp_kernel_checks(results: dict) -> dict:
     tols = [check_close(f"K2 {nm} [4,{n},{d}] (tp2 eval)", a, b, results) for nm, a, b in zip(("dq", "dk", "dv"), got, want)]
     check_same(f"K2 twice [4,{n},{d}] (tp2 eval)", got, fa.flash_self_bwd(q, k, v, o, do, lse, scale), results)
     b_ms, b_by = bound_ms(pak.bwd_flops(4, n, d), 8 * 4 * n * d * 2 + 4 * n * 4, exps=4 * n * n)
+    _sdpa_fwd, sdpa_bwd, _grads = pak.sdpa_graphs(q, k, v, do, scale)
     rows["flash_self_bwd"] = {"shape": [4, n, d], "max_abs_err": max(max_err(a, b) for a, b in zip(got, want)),
                               "tol": min(tols), "bound_ms": b_ms, "bound_by": b_by,
                               **alternating_ms({"ms": lambda: fa.flash_self_bwd(q, k, v, o, do, lse, scale),
-                                                "plain_ms": lambda: fa.flash_self_bwd_plain(q, k, v, o, do, lse, scale)})}
+                                                "plain_ms": lambda: fa.flash_self_bwd_plain(q, k, v, o, do, lse, scale),
+                                                "library_ms": sdpa_bwd})}
+    del _sdpa_fwd, sdpa_bwd, _grads
     b, h, nq, nk, d = 1, 4, 256, 77, 160
     q, k, v = randn(b, h, nq, d), randn(b, h, nk, d), randn(b, h, nk, d)
     o, pmap = fa.cross_attention_map_fwd(q, k, v, d**-0.5)
@@ -1999,10 +2025,11 @@ def _tp_kernel_checks(results: dict) -> dict:
     rows["cross_attention_map_fwd"] = {"shape": [b, h, nq, nk, d], "geometry": geo, "max_abs_err": max_err(o, o_ref),
                                        "tol": tol, "map_max_abs_err": max_err(pmap, m_ref), "map_tol": 1e-5,
                                        "bound_ms": b_ms, "bound_by": b_by, **graphs, "ms": graphs["graph_ms"],
-                                       "plain_ms": graphs["plain_graph_ms"]}
+                                       "plain_ms": graphs["plain_graph_ms"], "library_ms": None}
     for name, row in rows.items():
-        log(f"  (d) {name} {row['shape']}: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        library = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+        log(f"  (d) {name} {row['shape']}: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library (SDPA) "
+            f"{library}, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return rows
 
 
@@ -2141,9 +2168,96 @@ def tp_phase(results: dict) -> dict:
     return {k: [info["image_launches"][k] for info in ranks] for k in MAIN_PATH_KERNELS}
 
 
+# the tooling phase (phase 14): the chains' length and reps, the profile's
+# keys printed, the host tail's reps
+TOOL_CHAIN = 20
+TOOL_CHAIN_REPS = 3
+TOOL_TOP_KEYS = 10
+TOOL_HOST_TAIL_REPS = 2
+# what each chain's graph must hold (the replay's kernels)
+TOOL_CAPTURED = {"cfg": ("flash_self_fwd",), "eval": MAIN_PATH_KERNELS}
+
+
+def tooling_phase(pipe, results: dict) -> dict:
+    """Phase 14: the measuring tools on phase 5's pipeline. (a) and (b)
+    ``perf_unet``'s CFG chain and eval chain (``TOOL_CHAIN`` calls each):
+    each replayed from one CUDA graph, its last output against the eager
+    chain's within ``STANDARD_MAX_REL`` / ``STANDARD_RMS_REL`` (bitwise
+    equality printed), the graph holding the kernels of ``TOOL_CAPTURED``
+    (counted in a profiled replay) and their captures counted; (c)
+    ``profile.run`` on the main path's call, its join closing in every
+    family, the top keys of copy/cast and other printed, the table in
+    ``chiprun_out/profile_ops.json``; (d) ``perf_host_tail.measure`` and
+    its split (no warm-up calls: phase 5 ran the path). Readings only: no
+    time is gated. Returns each kernel's captured launches per chain."""
+    from guided_attention_tpu_torch import perf_host_tail, perf_unet, workload
+    from guided_attention_tpu_torch import profile as port_profile
+
+    card = results["card"]
+    t_phase = time.perf_counter()
+    out: dict = {}
+    captured = {name: {} for name in MAIN_PATH_KERNELS}
+    for tag, variant in (("cfg", perf_unet.Variant()), ("eval", perf_unet.Variant(bwd=True))):
+        t0 = time.perf_counter()
+        row = perf_unet.measure(pipe.sd.unet, variant, n=TOOL_CHAIN, reps=TOOL_CHAIN_REPS)
+        row["s"] = time.perf_counter() - t0
+        out[tag] = row
+        part = "(a)" if tag == "cfg" else "(b)"
+        log(f"  {part} perf_unet {perf_unet.report(row, card)}; {row['s']:.1f} s")
+        if not row["finite"] or row["rel_max_err"] > STANDARD_MAX_REL or row["rel_rms_err"] > STANDARD_RMS_REL:
+            raise SystemExit(f"phase 14 {part}: the graph's {tag} chain is not finite or is not the eager chain's "
+                             f"(rel max {row['rel_max_err']}, rel rms {row['rel_rms_err']})")
+        if tag == "eval" and row["loss_rel_max_err"] > STANDARD_MAX_REL:
+            raise SystemExit(f"phase 14 (b): the graph's losses are not the eager chain's ({row['loss_rel_max_err']})")
+        for name in TOOL_CAPTURED[tag]:
+            if row["graph_kernels"][name] <= 0 or row["captured_launches"][name] <= 0:
+                raise SystemExit(f"phase 14 {part}: {name} was not captured into the {tag} chain's graph")
+        for name in MAIN_PATH_KERNELS:
+            captured[name][tag + "_chain"] = row["captured_launches"][name]
+
+    # (c) the op and module breakdown of the main path's call (phase 5 warmed it)
+    t0 = time.perf_counter()
+    table = port_profile.run(pipe, warmup=False)
+    summary, joined = table["summary"], table["join"]
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "profile_ops.json"), "w") as f:
+        json.dump(table, f)
+    top = {fam: port_profile.top_keys(joined, fam, TOOL_TOP_KEYS) for fam in port_profile.FULL_FAMILIES}
+    out["profile"] = {"summary": summary, "families": joined["families"], "top": top, "s": time.perf_counter() - t0}
+    log(f"  (c) profile: wall {summary['wall_s']:.3f} s, device {summary['device_kernel_ms']:.1f} ms, "
+        f"{summary['launches']} launches, busy {100 * summary['device_busy_share']:.1f}%, join closes "
+        f"{joined['closes']} ({summary['join_rows']} rows, unattributed {summary['join_unattributed_ms']:.2f} ms, "
+        f"join {summary['join_s']:.1f} s); {out['profile']['s']:.1f} s")
+    for fam, f in joined["families"].items():
+        log(f"    [{fam}] {f['ms']:.2f} ms / {f['launches']}: rows {f['rows_ms']:.2f} ms / {f['rows_launches']}, "
+            f"unattributed {f['unattributed_ms']:.2f} ms / {f['unattributed_launches']} "
+            f"{'ok' if f['closes'] else 'FAIL'}")
+    for fam in port_profile.FULL_FAMILIES:
+        for what, rows, label in (("(module, op)", top[fam], "module"),
+                                  ("(module kind, op)", port_profile.by_kind(joined, fam)[:TOOL_TOP_KEYS], "kind")):
+            log(f"    top {TOOL_TOP_KEYS} {what} of {fam} by device ms:")
+            for r in rows:
+                log(f"    {r['ms']:10.2f} ms {r['launches']:7d}x  {r[label]}{' (backward)' if r['backward'] else ''}  "
+                    f"{r['op'][:60]}")
+    if not joined["closes"]:
+        raise SystemExit("phase 14 (c): the profile's join does not close")
+
+    # (d) the host tail of one call
+    t0 = time.perf_counter()
+    tail = perf_host_tail.measure(pipe, workload.STEPS, reps=TOOL_HOST_TAIL_REPS, warmup=False)
+    tail["s"] = time.perf_counter() - t0
+    out["host_tail"] = tail
+    for line in perf_host_tail.report(tail, card):
+        log("  (d) " + line)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"tooling phase: {out['phase_s']:.1f} s ({card})")
+    results["tooling"] = out
+    return captured
+
+
 # --phases: what a phase reads from another one's run
-PHASES = tuple(range(1, 14))
-PHASE_NEEDS = {9: (8,), 10: (6,), 12: (8,), 13: (5,)}
+PHASES = tuple(range(1, 15))
+PHASE_NEEDS = {9: (8,), 10: (6,), 12: (8,), 13: (5,), 14: (5,)}
 
 
 def selected_phases(argv) -> list:
@@ -2216,7 +2330,7 @@ def main(argv=()) -> int:
 
     # ---- 4 and 5. the main path
     pipe = None
-    if {4, 5, 6, 9, 10, 12} & set(phases):
+    if {4, 5, 6, 9, 10, 12, 14} & set(phases):
         t0 = time.perf_counter()
         pipe = workload.create("cuda")
         torch.cuda.synchronize()
@@ -2299,6 +2413,11 @@ def main(argv=()) -> int:
     # ---- 13. the tensor axis and the served mesh: two ranks
     tp_launches = tp_phase(results) if 13 in phases else None
 
+    # ---- 14. the measuring tools: perf_unet's graphs, the profile's join, the host tail
+    tool_launches = tooling_phase(pipe, results) if 14 in phases else None
+
+    # ---- 15. the kernels line and the last line
+
     for row in kernels:
         row["launches"] = launches.get(row["name"])
         if row["name"] not in MAIN_PATH_KERNELS:
@@ -2309,7 +2428,9 @@ def main(argv=()) -> int:
                             # per rank: [CLI run, Python batch]
                             ("data_parallel_launches", dp_launches),
                             # per rank: the main path's image at tp2
-                            ("tensor_parallel_launches", tp_launches)):
+                            ("tensor_parallel_launches", tp_launches),
+                            # captured into phase 14's graphs: a replay counts nothing
+                            ("tooling_captured_launches", tool_launches)):
             if counts is not None:
                 row[key] = counts[row["name"]]
         if tp_launches is not None:

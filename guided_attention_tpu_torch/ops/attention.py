@@ -60,6 +60,7 @@ def attention(
     pww_gate=None,
     use_flash: bool = False,
     tp: Optional[TensorAxis] = None,
+    bwd_config: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Multi-head attention over [B, N, C] projections.
 
@@ -74,6 +75,8 @@ def attention(
       tp: this rank's place on the tensor axis, whose group holds the other
         heads: ``heads`` and C count this rank's heads only, the maps
         returned are every head's.
+      bwd_config: K2's tile configuration for the self-attention route's
+        backward (``K2_TILE_CONFIGS`` index; None: its main one).
 
     Returns:
       (out [B, Nq, C] in q.dtype, probs map fp32 or None)
@@ -86,7 +89,7 @@ def attention(
 
     if use_flash and pww_mask is None and not capture_perhead:
         if not capture and k.shape[1] == nq:
-            out = flash_attention(split_heads(q, heads), split_heads(k, heads), split_heads(v, heads), scale)
+            out = flash_attention(split_heads(q, heads), split_heads(k, heads), split_heads(v, heads), scale, bwd_config)
             return merge_heads(out).to(dtype), None
         if capture and k.shape[1] != nq:
             out, pooled = cross_attention_with_map(

@@ -101,9 +101,12 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# the kernels are built for the presets' head dims: 40 (SD1.5), 64 (SD2.1)
+KERNEL_HEAD_DIMS = (40, 64)
+
+
 def _check_head_dim(name: str, d: int) -> None:
-    # the kernels are built for the presets' head dims: 40 (SD1.5), 64 (SD2.1)
-    if d not in (40, 64):
+    if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name}: head_dim must be 40 or 64, got {d}")
 
 
@@ -245,26 +248,31 @@ def flash_self_bwd_tiles(q, k, v, o, do, lse, scale: float, config: int):
 
 
 class _FlashSelf(torch.autograd.Function):
-    """K1 forward, K2 backward."""
+    """K1 forward, K2 backward (in its main configuration, or in
+    ``K2_TILE_CONFIGS[bwd_config]``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
+    def forward(ctx, q, k, v, scale, bwd_config):
         o, lse = flash_self_fwd(q, k, v, scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale = scale
+        ctx.scale, ctx.bwd_config = scale, bwd_config
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_self_bwd(q, k, v, o, do.contiguous(), lse, ctx.scale)
-        return dq, dk, dv, None
+        if ctx.bwd_config is None:
+            dq, dk, dv = flash_self_bwd(q, k, v, o, do.contiguous(), lse, ctx.scale)
+        else:
+            dq, dk, dv = flash_self_bwd_tiles(q, k, v, o, do.contiguous(), lse, ctx.scale, ctx.bwd_config)
+        return dq, dk, dv, None, None
 
 
-def flash_attention(q, k, v, scale: Optional[float] = None):
+def flash_attention(q, k, v, scale: Optional[float] = None, bwd_config: Optional[int] = None):
     """Self-attention over [B, H, N, D] without materializing the scores.
 
-    Differentiable: K1 forward, K2 backward on CUDA bf16 tensors; the plain
+    Differentiable: K1 forward, K2 backward on CUDA bf16 tensors (K2 in
+    the tile configuration ``bwd_config`` where one is given); the plain
     version (autograd through float32 math) for CPU tensors."""
     b, h, n, d = q.shape
     if scale is None:
@@ -275,7 +283,7 @@ def flash_attention(q, k, v, scale: Optional[float] = None):
     if q.device.type == "cpu":
         out = flash_self_plain(qf, kf, vf, float(scale))
     else:
-        out = _FlashSelf.apply(qf, kf, vf, float(scale))
+        out = _FlashSelf.apply(qf, kf, vf, float(scale), bwd_config)
     return out.reshape(b, h, n, d)
 
 

@@ -88,7 +88,7 @@ def test_port_package_has_every_counterpart_module():
         "runtime.artifacts", "runtime.native", "viewers.vis", "frontends.cli", "runtime.serialization",
         "runtime.checkpoint", "models.io", "frontends.server", "frontends.gui", "perf_server", "parity_trace",
         "parallel.batch", "parallel.mesh", "parallel.multihost", "viewers.batch_map_view",
-        "viewers.self_attn_clusters",
+        "viewers.self_attn_clusters", "perf_unet", "perf_host_tail",
     ):
         assert want in names, want
     for src in ("flash_self_fwd.cu", "flash_self_bwd.cu", "cross_attention_map.cu", "flash_self_fwd_v1.cu",
@@ -100,6 +100,49 @@ def test_port_package_has_every_counterpart_module():
     assert not [n for n in os.listdir(native) if n.endswith(".so")]
     # the web UI's own copy of the page, read from the port's directory
     assert os.path.exists(os.path.join(PKG_DIR, "frontends", "web", "ui.html"))
+
+
+# each of the JAX package's scripts and its counterpart in the port: a module
+# of the package, or a root file
+SCRIPT_COUNTERPARTS = {
+    "check_kernels_tpu.py": "chip_smoke.py",  # phase 3 holds every kernel against its plain version on the card
+    "parity_trace.py": "parity_trace",
+    "perf_attn_kernel.py": "perf_attn_kernel",
+    "perf_batch.py": "perf_batch",
+    "perf_host_tail.py": "perf_host_tail",
+    "perf_server.py": "perf_server",
+    "perf_unet.py": "perf_unet",
+    "profile_guided.py": "profile",  # its HLO join: the op and module breakdown
+}
+# what has no counterpart, by script or "script --option", and why
+NO_COUNTERPART = {
+    "perf_batch.py --pipelined": "it overlaps one call's pull with the next call's device work, which a JAX "
+    "array allows because it is a future; the port's loop reads host values at every guidance eval, so its "
+    "dispatch returns when its work is done and there is nothing to overlap",
+    "reference_trace.py": "it runs inside the original PyTorch reference's own environment (diffusers 0.12.1) "
+    "and hooks that code; it belongs to neither package",
+}
+
+
+def test_every_jax_script_has_a_counterpart_or_a_reason():
+    scripts = sorted(n for n in os.listdir(os.path.join(REPO, "scripts")) if n.endswith(".py"))
+    prefix = "guided_attention_tpu_torch."
+    modules = {m.name[len(prefix):] for m in pkgutil.walk_packages(guided_attention_tpu_torch.__path__, prefix)}
+    whole = {k for k in NO_COUNTERPART if " " not in k}
+    for script in scripts:
+        assert (script in SCRIPT_COUNTERPARTS) != (script in whole), script
+    for script, port in SCRIPT_COUNTERPARTS.items():
+        assert script in scripts, script
+        assert port in modules or os.path.exists(os.path.join(REPO, port)), port
+    for item, reason in NO_COUNTERPART.items():
+        script, _, option = item.partition(" ")
+        assert script in scripts and len(reason) > 40, item
+        if option:
+            with open(os.path.join(REPO, "scripts", script)) as f:
+                assert option in f.read(), item
+    # the options kept out are said to be so where the counterpart lives
+    with open(os.path.join(PKG_DIR, "perf_batch.py")) as f:
+        assert "--pipelined" in f.read()
 
 
 def test_default_device_is_cuda_and_does_not_fall_back():
